@@ -12,6 +12,13 @@ Two number formats, chosen by `_quantize_params` alone:
 - int16 units of 1/scale saturating at INF16 (`_pen_core_i16`), exact;
 - float32 (`_pen_core`), bit-for-bit the reference's operation order.
 
+Two entry points:
+- `banded_scores_gathered` scores candidates against a reference held on the
+  device (the engine's path);
+- `banded_scores` scores host-built query rows against host-built windows,
+  with the variants "pen" (int16 or f32; on the card at band 64 the int16
+  rows are packed two candidates per kernel block), "roll" and "chunk".
+
 The plain functions here are the CPU path and the oracle that the CUDA
 kernels (`align/kernels.py`, `align/csrc/banded_dp.cu`) are held against.
 """
@@ -21,8 +28,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mapper_tpu_torch.align import kernels
+
 BIG = 1e9
 INF16 = 16384  # saturation "infinity" for the int16 fixed-point path
+DEFAULT_CHUNK = 128
 
 
 def _quantize_params(params, lq: int, band: int):
@@ -227,6 +237,22 @@ def _pen_core(q_codes, w_codes, n, m, params6, band: int):
     )
 
 
+def _inv(scale: int) -> float:
+    return float(np.float32(1.0) / np.float32(scale))
+
+
+def _from_units(scores_i, diag_i, scale: int):
+    """Integer-unit scores and diagonal sums to float32 penalty units: BIG
+    at or above INF16, else times f32(1) / f32(scale)."""
+    inv = _inv(scale)
+    scores = torch.where(
+        scores_i >= INF16,
+        torch.tensor(BIG, dtype=torch.float32, device=scores_i.device),
+        scores_i.to(torch.float32) * inv,
+    )
+    return scores, diag_i.to(torch.float32) * inv
+
+
 def banded_scores_reference(q_codes, w_codes, n, m, params, band: int):
     """Plain float32 banded DP scores for host-built query and window codes:
     [B] float32, BIG where no alignment fits the band.  Windows shorter than
@@ -272,14 +298,9 @@ def _gathered_core(reads_u8, concat_u8, read_id, reversed_, win_start, lane, n, 
     q_codes, w_codes = _gather_codes(reads_u8, concat_u8, read_id, reversed_, win_start, n, band)
     quant = _quantize_params(params, lq, band)
     if quant is not None:
-        scores_i, diag_i = _pen_core_i16(q_codes, w_codes, n, m, quant[1], band)
-        inv = float(np.float32(1.0) / np.float32(quant[0]))
-        scores = torch.where(
-            scores_i >= INF16,
-            torch.tensor(BIG, dtype=torch.float32, device=scores_i.device),
-            scores_i.to(torch.float32) * inv,
+        scores, diag_sums = _from_units(
+            *_pen_core_i16(q_codes, w_codes, n, m, quant[1], band), quant[0]
         )
-        diag_sums = diag_i.to(torch.float32) * inv
     else:
         scores, diag_sums = _pen_core(q_codes, w_codes, n, m, _params_tuple(params), band)
     rows = torch.arange(b, device=diag_sums.device)
@@ -318,11 +339,96 @@ def banded_scores_gathered(reads_u8, concat, read_id, reversed_, win_start, lane
         return _gathered_core(*args, params, band)
     if device.type != "cuda":
         raise ValueError(f"banded_scores_gathered: unsupported device {device}")
-    from mapper_tpu_torch.align import kernels
-
     lq = reads_u8.shape[1]
     quant = _quantize_params(params, lq, band)
     if quant is not None:
-        inv = float(np.float32(1.0) / np.float32(quant[0]))
-        return kernels.banded_i16(*args, quant[1], inv, band)
+        return kernels.banded_i16(*args, quant[1], _inv(quant[0]), band)
     return kernels.banded_f32(*args, _params_tuple(params), band)
+
+
+def _host_rows(q_codes, w_codes, n, m, band: int, chunk: int):
+    """The host-window layout on the tensors' device: query codes zero-padded
+    to lq_padded = ceil(LQ / chunk) * chunk, windows zero-padded or cut to
+    lq_padded + band (uint8), and n/m as int32 vectors."""
+    q = torch.as_tensor(q_codes)
+    device = q.device
+    b, lq = q.shape
+    lq_padded = -(-lq // chunk) * chunk
+    q_rows = torch.zeros((b, lq_padded), dtype=torch.uint8, device=device)
+    q_rows[:, :lq] = q
+    w = torch.as_tensor(w_codes, device=device)
+    width = min(w.shape[1], lq_padded + band)
+    w_rows = torch.zeros((b, lq_padded + band), dtype=torch.uint8, device=device)
+    w_rows[:, :width] = w[:, :width]
+
+    def lengths(v):
+        return torch.as_tensor(v, device=device).to(torch.int32).reshape(-1).contiguous()
+
+    return q_rows, w_rows, lengths(n), lengths(m)
+
+
+def _rows_as_candidates(q_rows, w_rows, n, m):
+    """The gathered kernels' arguments for host rows: each row is its own
+    read, scored forward, against its window laid end to end with the
+    others as the reference."""
+    b = q_rows.shape[0]
+    idx = torch.arange(b, device=q_rows.device)
+    return (
+        q_rows, w_rows.reshape(-1), idx, torch.zeros(b, dtype=torch.bool, device=q_rows.device),
+        idx * w_rows.shape[1], torch.zeros_like(idx), n, m,
+    )
+
+
+def banded_scores(
+    q_codes, w_codes, n, m, params, band: int = 128, chunk: int = DEFAULT_CHUNK,
+    variant: str = "pen", return_diag_sums: bool = False,
+):
+    """Banded-DP scores of host-built rows: q_codes [B, LQ] (0-padded codes),
+    w_codes [B, LW] windows, n/m [B] their lengths, all on one device.  A CPU
+    tensor takes the plain versions; a CUDA tensor launches the kernels.
+
+    The query width is padded to a multiple of `chunk` and the windows to
+    that width + band; the int16/f32 choice is `_quantize_params` at the
+    padded width.  variant "pen" returns scores [B] float32 (BIG where no
+    path fits), with (scores, diag_sums [B, band]) when `return_diag_sums`;
+    on the int16 path at band 64 a CUDA tensor takes the packed kernel, two
+    candidates per block, bit-identical to the unpacked one.  "roll" and any
+    other variant ("chunk") return the float32 scores only, through the
+    whole-row and the chunked kernel.  An empty batch launches nothing."""
+    device = torch.as_tensor(q_codes).device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"banded_scores: unsupported device {device}")
+    q, w, n_t, m_t = _host_rows(q_codes, w_codes, n, m, band, chunk)
+    if q.shape[0] == 0:
+        scores = torch.empty(0, dtype=torch.float32, device=device)
+        if variant == "pen" and return_diag_sums:
+            return scores, torch.empty((0, band), dtype=torch.float32, device=device)
+        return scores
+    params6 = _params_tuple(params)
+    quant = _quantize_params(params, q.shape[1], band) if variant == "pen" else None
+    if device.type == "cpu":
+        qi, wi = q.to(torch.int32), w.to(torch.int32)
+        if quant is None:
+            scores, diag = _pen_core(qi, wi, n_t, m_t, params6, band)
+        else:
+            scores, diag = _from_units(*_pen_core_i16(qi, wi, n_t, m_t, quant[1], band), quant[0])
+        if variant != "pen":
+            return scores
+    else:
+        if variant == "roll":
+            return kernels.banded_roll_f32(q, w, n_t, m_t, params6, band)
+        if variant != "pen":
+            return kernels.banded_chunk_f32(q, w, n_t, m_t, params6, band, chunk)
+        if quant is not None and band == kernels.PACKED_BAND:
+            scores, diag = kernels.banded_i16_packed(q, w, n_t, m_t, quant[1], _inv(quant[0]))
+        else:
+            diag = torch.empty((q.shape[0], band), dtype=torch.float32, device=device)
+            rows = _rows_as_candidates(q, w, n_t, m_t)
+            if quant is None:
+                out = kernels.banded_f32(*rows, params6, band, diag_out=diag)
+            else:
+                out = kernels.banded_i16(*rows, quant[1], _inv(quant[0]), band, diag_out=diag)
+            scores = out[0]
+    if return_diag_sums:
+        return scores, diag
+    return scores

@@ -5,10 +5,17 @@ plain C interface, under a lock, into `mapper_tpu_torch/_build/`, keyed by
 the source's sha256, and loaded with ctypes.  There is no fallback: a
 missing `nvcc` or a failed build raises with the compiler's message.
 
-Each wrapper checks its tensors, allocates the [2, B] float32 output, launches
-on the current CUDA stream, raises if the launch reported an error, and adds
-one to its entry of `LAUNCHES`.  An empty candidate batch returns the empty
-output without a launch, and is not counted.
+Two kinds of entry:
+- `banded_i16` and `banded_f32` score candidates against a reference held on
+  the device (reads, reference and per-candidate indices);
+- `banded_i16_packed`, `banded_roll_f32` and `banded_chunk_f32` score
+  host-built rows: query codes q [B, LQ] and windows w [B, LW >= LQ + band],
+  uint8, with lengths n and m.
+
+Each wrapper checks its tensors, allocates its outputs with `torch.empty`,
+launches on the current CUDA stream, raises if the launch reported an error,
+and adds one to its entry of `LAUNCHES`.  An empty candidate batch returns the
+empty outputs without a launch, and is not counted.
 """
 
 from __future__ import annotations
@@ -32,14 +39,24 @@ NVCC_FLAGS = [
 ]
 
 # launches per kernel since the last reset (a run sets them to 0 itself)
-LAUNCHES = {"banded_i16": 0, "banded_f32": 0}
+LAUNCHES = {
+    "banded_i16": 0,
+    "banded_f32": 0,
+    "banded_i16_packed": 0,
+    "banded_roll_f32": 0,
+    "banded_chunk_f32": 0,
+}
+PACKED_BAND = 64  # banded_i16_packed's per-candidate band (kHalf in the source)
+_SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block takes without opting in
 
 _LOCK = threading.Lock()
 _LIB = None
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_COMMON_ARGS = [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, ctypes.c_int]
+_INT, _F32 = ctypes.c_int, ctypes.c_float
+_COMMON_ARGS = [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _INT]
+_ROW_ARGS = [_P, _I64, _P, _I64, _P, _P, _I64]  # q, lq, w, lw, n, m, B
 
 
 def find_nvcc() -> str | None:
@@ -101,10 +118,17 @@ def library(build_dir: Path | None = None):
         if not path.exists():
             compile_library(SOURCE, path)
         lib = ctypes.CDLL(str(path))
-        lib.mapper_banded_i16.argtypes = _COMMON_ARGS + [ctypes.c_int] * 6 + [ctypes.c_float, _P, _P]
-        lib.mapper_banded_i16.restype = ctypes.c_int
-        lib.mapper_banded_f32.argtypes = _COMMON_ARGS + [ctypes.c_float] * 6 + [_P, _P]
-        lib.mapper_banded_f32.restype = ctypes.c_int
+        signatures = {
+            "mapper_banded_i16": _COMMON_ARGS + [_INT] * 6 + [_F32, _P, _P, _P],
+            "mapper_banded_f32": _COMMON_ARGS + [_F32] * 6 + [_P, _P, _P],
+            "mapper_banded_i16_packed": _ROW_ARGS + [_INT] * 6 + [_F32, _P, _P, _P],
+            "mapper_banded_roll_f32": _ROW_ARGS + [_INT] + [_F32] * 6 + [_P, _P],
+            "mapper_banded_chunk_f32": _ROW_ARGS + [_INT, _INT] + [_F32] * 6 + [_P, _P],
+        }
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _INT
         if build_dir is None:
             _LIB = lib
         return lib
@@ -132,10 +156,24 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _prepare(reads, concat, read_id, reversed_, win_start, lane, n, m, band):
-    device = reads.device
-    if device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {device}")
+def _cuda_device(t):
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {t.device}")
+    return t.device
+
+
+def _check_band(band):
+    if not 1 <= band <= 1024:
+        raise ValueError(f"band {band} outside [1, 1024]")
+
+
+def _check_smem(smem, lq):
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"read width {lq} too large for the kernel's shared memory")
+
+
+def _prepare(reads, concat, read_id, reversed_, win_start, lane, n, m, band, diag_out=None):
+    device = _cuda_device(reads)
     _check("reads", reads, torch.uint8, 2, device)
     _check("concat", concat, torch.uint8, 1, device)
     _check("read_id", read_id, torch.int64, 1, device)
@@ -148,15 +186,17 @@ def _prepare(reads, concat, read_id, reversed_, win_start, lane, n, m, band):
     for name, t in (("reversed_", reversed_), ("win_start", win_start), ("lane", lane), ("n", n), ("m", m)):
         if t.shape[0] != b:
             raise ValueError(f"{name}: {t.shape[0]} rows, expected {b}")
-    if not 1 <= band <= 1024:
-        raise ValueError(f"band {band} outside [1, 1024]")
+    _check_band(band)
     lq = reads.shape[1]
-    if 2 * band * 4 + 2 * lq + band > 48 * 1024:
-        raise ValueError(f"read width {lq} too large for the kernel's shared memory")
+    _check_smem(2 * band * 4 + 2 * lq + band, lq)
     if b >= 2**31:
         raise ValueError(f"{b} candidates exceed one launch")
     if concat.shape[0] == 0 or reads.shape[0] == 0:
         raise ValueError("empty reference or read matrix")
+    if diag_out is not None:
+        _check("diag_out", diag_out, torch.float32, 2, device)
+        if tuple(diag_out.shape) != (b, band):
+            raise ValueError(f"diag_out: shape {tuple(diag_out.shape)}, expected {(b, band)}")
     out = torch.empty((2, b), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     common = [
@@ -167,29 +207,128 @@ def _prepare(reads, concat, read_id, reversed_, win_start, lane, n, m, band):
     return out, stream, common
 
 
-def banded_i16(reads, concat, read_id, reversed_, win_start, lane, n, m, ints, inv: float, band: int):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def banded_i16(
+    reads, concat, read_id, reversed_, win_start, lane, n, m, ints, inv: float, band: int,
+    diag_out=None,
+):
     """K1: int16-unit banded DP (`ints` from `_quantize_params`, `inv` =
-    f32(1) / f32(scale)).  Returns [2, B] float32 on the reads' device."""
-    out, stream, common = _prepare(reads, concat, read_id, reversed_, win_start, lane, n, m, band)
+    f32(1) / f32(scale)).  Returns [2, B] float32 on the reads' device; a
+    float32 [B, band] `diag_out` also receives every diagonal's sum."""
+    out, stream, common = _prepare(
+        reads, concat, read_id, reversed_, win_start, lane, n, m, band, diag_out
+    )
     if out.shape[1] == 0:
         return out
     lib = library()
-    err = lib.mapper_banded_i16(*common, *(int(v) for v in ints), float(inv), out.data_ptr(), stream)
+    err = lib.mapper_banded_i16(
+        *common, *(int(v) for v in ints), float(inv), out.data_ptr(), _ptr(diag_out), stream
+    )
     if err != 0:
         raise RuntimeError(f"banded_i16 launch failed: CUDA error {err}")
     _count("banded_i16")
     return out
 
 
-def banded_f32(reads, concat, read_id, reversed_, win_start, lane, n, m, params6, band: int):
+def banded_f32(
+    reads, concat, read_id, reversed_, win_start, lane, n, m, params6, band: int, diag_out=None
+):
     """K2: float32 banded DP (`params6` from `_params_tuple`).  Returns
-    [2, B] float32 on the reads' device."""
-    out, stream, common = _prepare(reads, concat, read_id, reversed_, win_start, lane, n, m, band)
+    [2, B] float32 on the reads' device; a float32 [B, band] `diag_out` also
+    receives every diagonal's sum."""
+    out, stream, common = _prepare(
+        reads, concat, read_id, reversed_, win_start, lane, n, m, band, diag_out
+    )
     if out.shape[1] == 0:
         return out
     lib = library()
-    err = lib.mapper_banded_f32(*common, *(float(v) for v in params6), out.data_ptr(), stream)
+    err = lib.mapper_banded_f32(
+        *common, *(float(v) for v in params6), out.data_ptr(), _ptr(diag_out), stream
+    )
     if err != 0:
         raise RuntimeError(f"banded_f32 launch failed: CUDA error {err}")
     _count("banded_f32")
     return out
+
+
+def _prepare_rows(q, w, n, m, band, smem):
+    """Checks for the host-row kernels; returns (B, stream, leading args)."""
+    device = _cuda_device(q)
+    _check("q", q, torch.uint8, 2, device)
+    _check("w", w, torch.uint8, 2, device)
+    _check("n", n, torch.int32, 1, device)
+    _check("m", m, torch.int32, 1, device)
+    b, lq = q.shape
+    for name, rows in (("w", w.shape[0]), ("n", n.shape[0]), ("m", m.shape[0])):
+        if rows != b:
+            raise ValueError(f"{name}: {rows} rows, expected {b}")
+    _check_band(band)
+    if w.shape[1] < lq + band:
+        raise ValueError(f"w: width {w.shape[1]} < read width {lq} + band {band}")
+    _check_smem(smem, lq)
+    if b >= 2**31:
+        raise ValueError(f"{b} candidates exceed one launch")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return b, stream, [q.data_ptr(), lq, w.data_ptr(), w.shape[1], n.data_ptr(), m.data_ptr(), b]
+
+
+def banded_i16_packed(q, w, n, m, ints, inv: float):
+    """K3: the int16-unit DP at band 64, two candidates per block (rows i
+    and i + ceil(B / 2)).  Returns (scores [B], diag_sums [B, 64]), float32,
+    in penalty units."""
+    lq = q.shape[1]
+    smem = 2 * 2 * PACKED_BAND * 4 + 2 * (2 * lq + PACKED_BAND)
+    b, stream, rows = _prepare_rows(q, w, n, m, PACKED_BAND, smem)
+    scores = torch.empty(b, dtype=torch.float32, device=q.device)
+    diag = torch.empty((b, PACKED_BAND), dtype=torch.float32, device=q.device)
+    if b == 0:
+        return scores, diag
+    lib = library()
+    err = lib.mapper_banded_i16_packed(
+        *rows, *(int(v) for v in ints), float(inv), scores.data_ptr(), diag.data_ptr(), stream
+    )
+    if err != 0:
+        raise RuntimeError(f"banded_i16_packed launch failed: CUDA error {err}")
+    _count("banded_i16_packed")
+    return scores, diag
+
+
+def banded_roll_f32(q, w, n, m, params6, band: int):
+    """K5: float32 banded DP with the penalty computed in the kernel, whole
+    rows staged once.  Returns scores [B] float32."""
+    lq = q.shape[1]
+    b, stream, rows = _prepare_rows(q, w, n, m, band, 2 * band * 4 + 2 * lq + band)
+    scores = torch.empty(b, dtype=torch.float32, device=q.device)
+    if b == 0:
+        return scores
+    lib = library()
+    err = lib.mapper_banded_roll_f32(
+        *rows, band, *(float(v) for v in params6), scores.data_ptr(), stream
+    )
+    if err != 0:
+        raise RuntimeError(f"banded_roll_f32 launch failed: CUDA error {err}")
+    _count("banded_roll_f32")
+    return scores
+
+
+def banded_chunk_f32(q, w, n, m, params6, band: int, chunk: int):
+    """K4: K5's function with the rows staged `chunk` query positions at a
+    time, so shared memory does not grow with the read width.  Returns
+    scores [B] float32."""
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk} < 1")
+    b, stream, rows = _prepare_rows(q, w, n, m, band, 2 * band * 4 + 2 * chunk + band)
+    scores = torch.empty(b, dtype=torch.float32, device=q.device)
+    if b == 0:
+        return scores
+    lib = library()
+    err = lib.mapper_banded_chunk_f32(
+        *rows, band, chunk, *(float(v) for v in params6), scores.data_ptr(), stream
+    )
+    if err != 0:
+        raise RuntimeError(f"banded_chunk_f32 launch failed: CUDA error {err}")
+    _count("banded_chunk_f32")
+    return scores

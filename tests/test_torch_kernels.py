@@ -66,6 +66,117 @@ def test_banded_f32_matches_plain(cuda, band, lq, mutation):
     assert (got[0] < 1e8).mean() > 0.5
 
 
+def _host_rows(cands, band, device, chunk=128):
+    """The host-window rows of a candidate batch, on `device`."""
+    reads, concat, read_id, reversed_, win_start, _, n, m = banded._normalize(
+        *_tensors(cands, device)
+    )
+    q, w = banded._gather_codes(reads, concat, read_id, reversed_, win_start, n, band)
+    return banded._host_rows(q, w, n, m, band, chunk)
+
+
+@pytest.mark.parametrize("band,lq", [(64, 192), (128, 192), (128, 1024)])
+def test_diag_out_matches_plain(cuda, band, lq):
+    """banded_i16 / banded_f32 on host rows fill every diagonal's sum (the
+    1,024-wide rows take f32 at default penalties).  Called directly: at
+    band 64 "pen" takes the packed kernel instead."""
+    params = AlignmentParameters.defaults()
+    cands = scoring_candidates(np.random.default_rng(band + lq), 256, lq, band)
+    rows = _host_rows(cands, band, cuda)
+    quant = banded._quantize_params(params, rows[0].shape[1], band)
+    got_d = torch.empty((256, band), dtype=torch.float32, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    if quant is None:
+        name = "banded_f32"
+        out = kernels.banded_f32(
+            *banded._rows_as_candidates(*rows), banded._params_tuple(params), band, diag_out=got_d
+        )
+    else:
+        name = "banded_i16"
+        out = kernels.banded_i16(
+            *banded._rows_as_candidates(*rows), quant[1], banded._inv(quant[0]), band,
+            diag_out=got_d,
+        )
+    got_s = out[0]
+    want_s, want_d = banded.banded_scores(
+        *[r.cpu() for r in rows], params, band=band, return_diag_sums=True
+    )
+    torch.cuda.synchronize()
+    assert name == ("banded_f32" if lq == 1024 else "banded_i16")
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    np.testing.assert_allclose(got_s.cpu().numpy(), want_s.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got_d.cpu().numpy(), want_d.numpy(), rtol=0, atol=1e-5)
+    if name == "banded_i16":
+        assert torch.equal(got_s.cpu(), want_s) and torch.equal(got_d.cpu(), want_d)
+
+
+@pytest.mark.parametrize("num", [2047, 2048])
+def test_banded_i16_packed_equals_plain(cuda, num):
+    """Variant "pen" at band 64 takes the packed kernel; it equals the plain
+    version and banded_i16 on the same host rows, scores and diagonal sums."""
+    params = AlignmentParameters.defaults()
+    cands = scoring_candidates(np.random.default_rng(num), num, 192, 64)
+    rows = _host_rows(cands, 64, cuda)
+    before = dict(kernels.LAUNCHES)
+    got = banded.banded_scores(*rows, params, band=64, return_diag_sums=True)
+    assert kernels.LAUNCHES["banded_i16_packed"] == before["banded_i16_packed"] + 1
+    assert kernels.LAUNCHES["banded_i16"] == before["banded_i16"]
+    plain = banded.banded_scores(*[r.cpu() for r in rows], params, band=64, return_diag_sums=True)
+    scale, ints = banded._quantize_params(params, rows[0].shape[1], 64)
+    diag = torch.empty((num, 64), dtype=torch.float32, device=cuda)
+    out = kernels.banded_i16(
+        *banded._rows_as_candidates(*rows), ints, banded._inv(scale), 64, diag_out=diag
+    )
+    torch.cuda.synchronize()
+    for g, p, u in zip(got, plain, (out[0], diag)):
+        assert torch.equal(g.cpu(), p) and torch.equal(g, u)
+    assert (got[0] < 1e8).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("variant,name", [("roll", "banded_roll_f32"), ("chunk", "banded_chunk_f32")])
+@pytest.mark.parametrize("lq,chunk", [(1024, 128), (200, 64)])
+def test_roll_and_chunk_match_plain(cuda, variant, name, lq, chunk):
+    params = AlignmentParameters.defaults()
+    cands = scoring_candidates(np.random.default_rng(lq), 512, lq, 128)
+    rows = _host_rows(cands, 128, cuda, chunk)
+    before = kernels.LAUNCHES[name]
+    got = banded.banded_scores(*rows, params, band=128, chunk=chunk, variant=variant)
+    assert kernels.LAUNCHES[name] == before + 1
+    plain = banded.banded_scores(*[r.cpu() for r in rows], params, band=128, chunk=chunk, variant=variant)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=0, atol=1e-5)
+    assert (got < 1e8).float().mean() > 0.5
+
+
+def test_chunk_kernel_takes_a_ragged_last_chunk(cuda):
+    """Width 200 in chunks of 64: the last chunk is cut short."""
+    params6 = banded._params_tuple(AlignmentParameters.defaults())
+    cands = scoring_candidates(np.random.default_rng(200), 512, 200, 128)
+    q, w, n, m = _host_rows(cands, 128, cuda, chunk=8)
+    assert q.shape[1] == 200
+    got = kernels.banded_chunk_f32(q, w, n, m, params6, 128, 64)
+    want = kernels.banded_roll_f32(q, w, n, m, params6, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_host_row_wrappers_skip_an_empty_batch(cuda):
+    q = torch.zeros((0, 128), dtype=torch.uint8, device=cuda)
+    w = torch.zeros((0, 256), dtype=torch.uint8, device=cuda)
+    n = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    params6 = banded._params_tuple(AlignmentParameters.defaults())
+    assert kernels.banded_roll_f32(q, w, n, n, params6, 128).shape == (0,)
+    assert kernels.banded_chunk_f32(q, w, n, n, params6, 128, 128).shape == (0,)
+    scores, diag = kernels.banded_i16_packed(q, w, n, n, (30, 1, 63, 18, 60, 15), 1 / 30)
+    assert scores.shape == (0,) and diag.shape == (0, 64)
+    params = AlignmentParameters.defaults()
+    for band in (64, 128):
+        scores, diag = banded.banded_scores(q, w, n, n, params, band=band, return_diag_sums=True)
+        assert scores.shape == (0,) and diag.shape == (0, band)
+    assert kernels.LAUNCHES == before
+
+
 def test_wrapper_rejects_bad_inputs(cuda):
     cands = scoring_candidates(np.random.default_rng(3), 64, 64, 32)
     args = banded._normalize(*_tensors(cands, cuda))
