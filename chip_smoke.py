@@ -4,7 +4,8 @@
 
 Phases (each raises on failure; nothing is caught):
 1. print the card's name and power limit, build the CUDA kernels from
-   `mapper_tpu_torch/align/csrc/banded_dp.cu` and print the build time;
+   `mapper_tpu_torch/align/csrc/` (`banded_dp.cu` and `probe_i16.cu`, one
+   nvcc each, started together) and print the build time;
 2. compare each kernel with its plain PyTorch version on the card at the
    main paths' shapes and time both with CUDA events: banded_i16 at read
    width 192, bands 64 and 128, 16,384 candidates, exact equality;
@@ -12,7 +13,15 @@ Phases (each raises on failure; nothing is caught):
    banded_i16_packed on the host-window rows of width 192 (256 padded) at
    band 64, exact; banded_roll_f32 and banded_chunk_f32 (chunk 128) on the
    rows of width 1024 at band 128, within 1e-5;
-3. the host-window path: `banded_scores` on rows gathered on the card
+   the probe kernels P1-P9: all 40 bodies on the probes' own [64, 128]
+   input, on a seeded one over the whole int16 range and at [16384, 128]
+   (one row per candidate of the 150 bp phase), each exactly equal to its
+   plain version, and timed at [16384, 128];
+3. the probe path: `python -m mapper_tpu_torch.probe_i16 <stage>` for each
+   of the nine stages, in this process with the launch counts read around
+   it (every stage's kernel must launch, every body print "OK exact"),
+   then as nine subprocesses started together, each of which must exit 0;
+4. the host-window path: `banded_scores` on rows gathered on the card
    (`banded._gather_codes`) from candidates over a 4.6 Mb reference, with
    the launch counts read around it: "pen" at width 192 (band 64 through
    banded_i16_packed, band 128 through banded_i16) and 1024 (band 128, f32),
@@ -21,15 +30,19 @@ Phases (each raises on failure; nothing is caught):
    on the same candidates exactly, the packed band-64 run must equal
    banded_i16 on the same rows exactly, and "roll", "chunk" and "pen" must
    give the same f32 scores bit for bit;
-4. run the CLI (`mapper_tpu_torch.cli.main`) on a simulated 4.6 Mb
+5. run the CLI (`mapper_tpu_torch.cli.main`) on a simulated 4.6 Mb
    reference, the size of E. coli K-12: 100,000 single-end 150 bp reads
    (1% SNPs, a 1-3 bp indel in 10% of reads, half reverse-complemented) and
    2,000 reads of 1,000 bp in a second run, each with --out-sam --out-vcf
-   --out-refs-map-count --out-unaligned.  Both kernels must launch, at least
-   99% of reads must align, and SAM and VCF must be byte-identical to the
-   same runs scored by the exact native DP on the host
-   (MAPPER_TPU_HOST_SCORING=1, with the ceiling raised to 1,024 bp so the
-   long reads are host-scored too), which must launch no kernel.
+   --out-mutations --out-refs-map-count --out-unaligned.  Both kernels must
+   launch, at least 99% of reads must align, and SAM, VCF and mutations must
+   be byte-identical to the same runs scored by the exact native DP on the
+   host (MAPPER_TPU_HOST_SCORING=1, with the ceiling raised to 1,024 bp so
+   the long reads are host-scored too), which must launch no kernel;
+6. the device pileup: the 100,000-read run again with
+   MAPPER_TPU_DEVICE_PILEUP=1, launch counts read around it.  banded_i16
+   must launch, rows must have been counted on the card, and SAM, VCF and
+   mutations must be byte-identical to the run without it.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a card, and without
@@ -39,7 +52,9 @@ the rest of the repository beside this file.
 from __future__ import annotations
 
 import contextlib
+import difflib
 import io
+import itertools
 import json
 import os
 import re
@@ -57,6 +72,7 @@ os.environ["MAPPER_TPU_HOST_SCORING_MAX_LEN"] = "1024"
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 KERNEL_SOURCE = "mapper_tpu_torch/align/csrc/banded_dp.cu"
+PROBE_SOURCE = "mapper_tpu_torch/align/csrc/probe_i16.cu"
 REPLACES = {
     "banded_i16": "mapper_tpu/align/pallas_dp.py:511",
     "banded_f32": "mapper_tpu/align/pallas_dp.py:437",
@@ -68,6 +84,7 @@ _KEYS = ("reads", "concat", "read_id", "reversed_", "win_start", "lane", "n", "m
 CHUNK = 128
 # (read width, band) -> (candidates, seed) of the host-window path
 HOST_WINDOW_SHAPES = {(192, 64): (16384, 64), (192, 128): (16384, 128), (1024, 128): (4096, 7)}
+PROBE_ROWS = 16384  # the probes' timing block: one row per candidate of the 150 bp phase
 
 
 def gpu_line() -> str:
@@ -91,6 +108,34 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call: `reps` calls captured in one CUDA
+    graph after one warm-up, then one replay timed with CUDA events.  The host
+    issues one replay, so its pace of issuing calls (ctypes and PyTorch's
+    dispatcher, 10-20 us a call) is not in the time, as it is in `cuda_ms`."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
 
 
 def compare_kernel(name, lq, band, num_cands, params, seed, device):
@@ -257,8 +302,8 @@ def host_window_phase(params, inputs, kernels) -> dict:
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"[host-window] kernel launches in the host-window path: {launches}", flush=True)
-    for name, count in launches.items():
-        if count <= 0:
+    for name in REPLACES:
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the host-window path")
 
     # banded_i16 on the band-64 rows, outside the counted run
@@ -294,6 +339,94 @@ def host_window_phase(params, inputs, kernels) -> dict:
     return launches
 
 
+def compare_probes(device) -> dict:
+    """Every probe body's kernel against its plain version on the card,
+    exactly, at [64, 128] (the probes' own input and a seeded one over the
+    whole int16 range) and at [PROBE_ROWS, 128]; each timed at the larger
+    shape by CUDA-graph replay (`graph_ms`), device time without the host's
+    pace.  Returns {stage: (max |difference|, kernel ms, plain ms)}, the
+    times summed over the stage's bodies."""
+    import numpy as np
+    import torch
+
+    from mapper_tpu_torch.probe_i16 import probes
+
+    rng = np.random.default_rng(0)
+
+    def block(rows):
+        return torch.from_numpy(rng.integers(-2**15, 2**15, (rows, probes.B)).astype(np.int16)).to(device)
+
+    big = block(PROBE_ROWS)
+    blocks = [probes.probe_input(device), block(probes.T), big]
+    results = {}
+    for stage, bodies in probes.STAGES.items():
+        err, ms, plain_ms = 0.0, 0.0, 0.0
+        for body in bodies:
+            for x in blocks:
+                got, want = probes.run(stage, body, x), probes.plain(stage, body, x)
+                torch.cuda.synchronize()
+                err = max(err, float((got.to(torch.int32) - want.to(torch.int32)).abs().max()))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"probe {stage}.{body}: kernel != plain at {tuple(x.shape)}")
+            ms += graph_ms(lambda: probes.run(stage, body, big), 20)
+            plain_ms += graph_ms(lambda: probes.plain(stage, body, big), 20)
+        results[stage] = (err, ms, plain_ms)
+        print(
+            f"[kernel] probe_i16_{stage} ({len(bodies)} bodies) [{PROBE_ROWS}, {probes.B}]: "
+            f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (sums over the bodies, "
+            "CUDA-graph replay)",
+            flush=True,
+        )
+    return results
+
+
+def probe_phase(kernels) -> dict:
+    """The probe path: the entry point `python -m mapper_tpu_torch.probe_i16
+    <stage>` for every stage, in this process with the launch counts set to 0
+    just before and read just after, then as nine subprocesses started
+    together.  Returns the launch counts."""
+    from mapper_tpu_torch.probe_i16 import probes
+    from mapper_tpu_torch.probe_i16.__main__ import main as probe_main
+
+    os.environ["MAPPER_TPU_TORCH_DEVICE"] = "cuda"
+    kernels.reset_launches()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rcs = {stage: probe_main([stage]) for stage in probes.STAGES}
+    launches = dict(kernels.LAUNCHES)
+    print(f"[probe] kernel launches in the probe path: {launches}", flush=True)
+    oks = printed.getvalue().count(": OK exact")
+    if any(rcs.values()) or oks != sum(map(len, probes.STAGES.values())):
+        raise AssertionError(f"probe entry: exit codes {rcs}\n{printed.getvalue()}")
+    for stage in probes.STAGES:
+        if launches[f"probe_i16_{stage}"] <= 0:
+            raise AssertionError(f"probe_i16_{stage} was not launched by the probe path")
+    print(f"[probe] in-process: {oks} bodies OK exact", flush=True)
+
+    t0 = time.time()
+    env = dict(os.environ, MAPPER_TPU_TORCH_DEVICE="cuda")
+    procs = {
+        stage: subprocess.Popen(
+            [sys.executable, "-m", "mapper_tpu_torch.probe_i16", stage],
+            cwd=Path(__file__).resolve().parent, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for stage in probes.STAGES
+    }
+    try:
+        outs = {stage: proc.communicate(timeout=300)[0] for stage, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for stage, proc in procs.items():
+        if proc.returncode != 0 or outs[stage].count(": OK exact") != len(probes.STAGES[stage]):
+            raise AssertionError(f"probe stage {stage} exited {proc.returncode}:\n{outs[stage][-2000:]}")
+    print(f"[probe] nine subprocesses exited 0 in {time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
 def simulate_inputs(root: Path, ref_size: int, num_short: int, num_long: int, seed: int = 0):
     import numpy as np
 
@@ -316,6 +449,7 @@ def run_cli(root: Path, queries: str, tag: str, host_scoring: bool) -> dict:
     args = [
         "--reference", str(root / "ref.fasta"), "--queries", str(root / queries),
         "--out-sam", str(out / "out.sam"), "--out-vcf", str(out / "out.vcf"),
+        "--out-mutations", str(out / "mutations.txt"),
         "--out-refs-map-count", str(out / "refs.txt"),
         "--out-unaligned", str(out / "unaligned.fastq"),
         "--cache-dir", str(root / "index_cache"),
@@ -343,9 +477,12 @@ def run_cli(root: Path, queries: str, tag: str, host_scoring: bool) -> dict:
         raise AssertionError(f"{tag}: no align-phase line\n{log.getvalue()[-3000:]}")
     num, seconds = int(m.group(1)), float(m.group(2))
     unaligned = (out / "unaligned.fastq").read_text().count("\n") // 4
+    counted = re.search(r"Device pileup: (\d+) rows", log.getvalue())
     result = {
         "sam": (out / "out.sam").read_bytes(),
         "vcf": (out / "out.vcf").read_bytes(),
+        "mutations": (out / "mutations.txt").read_bytes(),
+        "device_pileup_rows": None if counted is None else int(counted.group(1)),
         "queries": num,
         "aligned_fraction": 1.0 - unaligned / num,
         "align_seconds": seconds,
@@ -359,10 +496,10 @@ def run_cli(root: Path, queries: str, tag: str, host_scoring: bool) -> dict:
     return result
 
 
-def cli_phase(root: Path, kernels) -> dict:
+def cli_phase(root: Path, kernels) -> tuple[dict, dict]:
     """The main path: kernel-scored CLI runs (launches counted) and their
     host-scored twins (which launch nothing); returns the launch counts of
-    the kernel runs."""
+    the kernel runs and the short kernel-scored run."""
     kernels.reset_launches()
     short = run_cli(root, "short.fastq", "short_kernel", host_scoring=False)
     long_ = run_cli(root, "long.fastq", "long_kernel", host_scoring=False)
@@ -381,10 +518,42 @@ def cli_phase(root: Path, kernels) -> dict:
         raise AssertionError(f"the host-scored runs launched kernels: {kernels.LAUNCHES}")
     print("[cli] host-scored runs launched no kernel", flush=True)
     for kernel_run, host_run, tag in ((short, short_host, "short"), (long_, long_host, "long")):
-        for out in ("sam", "vcf"):
+        for out in ("sam", "vcf", "mutations"):
             if kernel_run[out] != host_run[out]:
-                raise AssertionError(f"{tag}: {out.upper()} differs from the host-scored run")
-        print(f"[cli] {tag}: SAM and VCF byte-identical to the host-scored run", flush=True)
+                raise AssertionError(f"{tag}: {out} differs from the host-scored run")
+        print(f"[cli] {tag}: SAM, VCF and mutations byte-identical to the host-scored run", flush=True)
+    return launches, short
+
+
+def device_pileup_phase(root: Path, kernels, short: dict) -> dict:
+    """The 100,000-read run again with the pileup accumulated on the card,
+    launch counts read around it; SAM, VCF and mutations must equal the run
+    without it.  Returns the launch counts."""
+    kernels.reset_launches()
+    os.environ["MAPPER_TPU_DEVICE_PILEUP"] = "1"
+    try:
+        run = run_cli(root, "short.fastq", "short_device_pileup", host_scoring=False)
+    finally:
+        os.environ.pop("MAPPER_TPU_DEVICE_PILEUP", None)
+    launches = dict(kernels.LAUNCHES)
+    print(f"[pileup] kernel launches in the device-pileup run: {launches}", flush=True)
+    if launches["banded_i16"] <= 0:
+        raise AssertionError("banded_i16 was not launched by the device-pileup run")
+    rows = run["device_pileup_rows"]
+    if not rows:
+        raise AssertionError(f"no rows were counted on the device: {rows}")
+    for out in ("sam", "vcf", "mutations"):
+        if run[out] != short[out]:
+            diff = difflib.unified_diff(
+                short[out].decode().splitlines(), run[out].decode().splitlines(), lineterm="", n=0
+            )
+            shown = "\n".join(line[:300] for line in itertools.islice(diff, 12))
+            raise AssertionError(f"device pileup: {out} differs from the host-pileup run:\n{shown}")
+    print(
+        f"[pileup] {rows} rows counted on the card ({rows / run['queries']:.4f} of reads); "
+        "SAM, VCF and mutations byte-identical to the host-pileup run",
+        flush=True,
+    )
     return launches
 
 
@@ -419,6 +588,8 @@ def main() -> int:
     f32 = compare_kernel("banded_f32", 1024, 128, 4096, params, 7, device)
     inputs = host_window_inputs(device)
     host_rows = compare_host_row_kernels(params, inputs)
+    probe_rows = compare_probes(device)
+    probe_launches = probe_phase(kernels)
     window_launches = host_window_phase(params, inputs, kernels)
     del inputs
 
@@ -428,28 +599,44 @@ def main() -> int:
         simulate_inputs(root, 4_600_000, 100_000, 2_000)
         print(f"[data] simulated in {time.time() - t0:.1f} s", flush=True)
         os.environ["MAPPER_TPU_TORCH_DEVICE"] = "cuda"
-        cli_launches = cli_phase(root, kernels)
+        cli_launches, short = cli_phase(root, kernels)
+        pileup_launches = device_pileup_phase(root, kernels, short)
 
+    from mapper_tpu_torch.probe_i16.probes import SITES
+
+    # (name, source, replaces, path, max |error|, ms, plain ms)
     rows = [
         # i16 at band 64: the band 150 bp reads take at default penalties
-        ("banded_i16", max(e for e, _, _ in i16), i16[0][1], i16[0][2]),
-        ("banded_f32", f32[0], f32[1], f32[2]),
-        *((name, *host_rows[name]) for name in ("banded_i16_packed", "banded_roll_f32", "banded_chunk_f32")),
+        ("banded_i16", KERNEL_SOURCE, REPLACES["banded_i16"], "cli",
+         max(e for e, _, _ in i16), i16[0][1], i16[0][2]),
+        ("banded_f32", KERNEL_SOURCE, REPLACES["banded_f32"], "cli", *f32),
+        *((name, KERNEL_SOURCE, REPLACES[name], "host_window", *host_rows[name])
+          for name in ("banded_i16_packed", "banded_roll_f32", "banded_chunk_f32")),
+        *((f"probe_i16_{stage}", PROBE_SOURCE, site, "probe_i16", *probe_rows[stage])
+          for stage, site in SITES.items()),
     ]
     # "launches" is the count of the kernel's own path ("path"): the CLI for
-    # the engine's kernels, the host-window path for the rest; each path's
-    # count, read around that path alone, is under "launches_by_path"
-    by_path = {"cli": cli_launches, "host_window": window_launches}
+    # the engine's kernels, the host-window path for K3-K5, the probe entry
+    # for P1-P9; each path's count, read around that path alone, is under
+    # "launches_by_path"
+    by_path = {
+        "cli": cli_launches, "host_window": window_launches, "probe_i16": probe_launches,
+        "device_pileup": pileup_launches,
+    }
     entries = []
-    for name, err, ms, plain_ms in rows:
-        path = "cli" if name in cli_launches and cli_launches[name] > 0 else "host_window"
+    for name, source, replaces, path, err, ms, plain_ms in rows:
         entries.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "path": path, "launches": by_path[path][name],
             "launches_by_path": {p: counts.get(name, 0) for p, counts in by_path.items()},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            # probes: one CUDA-graph replay of 20 calls; the rest: 20 calls
+            # issued from Python, each much longer than its issue time
+            "timing": "cuda_graph_replay" if path == "probe_i16" else "cuda_events",
         })
+    for entry in entries:
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{entry['name']} has no launches on its path {entry['path']}")
     print(json.dumps({"kernels": entries}))
     print(gpu)
     # the run drove one card, whatever else the host has

@@ -12,7 +12,7 @@
 //                         band 64;
 //   banded_roll_f32    <- _pallas_kernel_roll (whole rows staged once);
 //   banded_chunk_f32   <- _pallas_kernel (rows staged chunk by chunk).
-// All five run the same DP step (dp_step below).
+// All five run the same DP step (dp_step in dp_core.cuh).
 //
 // What bounds them on this card: per DP cell the work is a few integer or
 // float adds, mins and selects on data already in registers, and the bytes
@@ -38,118 +38,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dp_core.cuh"
+
 namespace {
 
-constexpr int kInf16 = 16384;
-constexpr float kBig = 1e9f;
+using namespace dp;
+
 constexpr int kHalf = 64;  // the packed kernel's per-candidate band
-
-__device__ __forceinline__ int popcount4(int u) { return __popc(u & 15); }
-
-struct I16Ops {
-  using T = int;
-  int mutation, amb_unit, ins_open, ins_ext, del_open, del_ext;
-  float inv;  // f32(1) / f32(scale)
-
-  __device__ __forceinline__ T inf() const { return kInf16; }
-  __device__ __forceinline__ T add(T a, T b) const { return a + b; }
-  __device__ __forceinline__ T sat(T v) const { return v < kInf16 ? v : kInf16; }
-  __device__ __forceinline__ T pen(int q, int w) const {
-    return (q & w) != 0 ? amb_unit * (popcount4(q | w) - 1) : mutation;
-  }
-  __device__ __forceinline__ T step_ext(int step) const { return step * del_ext; }
-  __device__ __forceinline__ float score(T r) const {
-    return r >= kInf16 ? kBig : __fmul_rn(__int2float_rn(r), inv);
-  }
-  __device__ __forceinline__ float diag(T d) const { return __fmul_rn(__int2float_rn(d), inv); }
-};
-
-struct F32Ops {
-  using T = float;
-  float mutation, ambiguity, ins_open, ins_ext, del_open, del_ext;
-
-  __device__ __forceinline__ T inf() const { return kBig; }
-  __device__ __forceinline__ T add(T a, T b) const { return __fadd_rn(a, b); }
-  __device__ __forceinline__ T sat(T v) const { return v; }
-  __device__ __forceinline__ T pen(int q, int w) const {
-    if ((q & w) == 0) return mutation;
-    return __fdiv_rn(__fmul_rn(ambiguity, __int2float_rn(popcount4(q | w) - 1)), 3.0f);
-  }
-  __device__ __forceinline__ T step_ext(int step) const {
-    return __fmul_rn(__int2float_rn(step), del_ext);
-  }
-  __device__ __forceinline__ float score(T r) const { return r; }
-  __device__ __forceinline__ float diag(T d) const { return d; }
-};
-
-template <class T>
-__device__ __forceinline__ T vmin(T a, T b) { return b < a ? b : a; }
-
-// One query position of the banded DP, for one lane of one candidate.
-// `t` is the thread's slot in the exchange buffers (buffer p is
-// bufs + p * slots), `sub` its lane within the candidate's `width` lanes, so
-// slots t - sub .. t - sub + width - 1 belong to this candidate and no shift
-// or Kogge-Stone step crosses into another one.  `active` is x < n: an
-// inactive lane keeps its state but still takes part in every barrier.
-template <class Ops>
-__device__ __forceinline__ void dp_step(const Ops& ops, typename Ops::T* bufs, int slots,
-                                        int& p, int t, int sub, int width,
-                                        typename Ops::T pen, bool w_valid, bool active,
-                                        typename Ops::T& best, typename Ops::T& ins) {
-  using T = typename Ops::T;
-  const bool live = w_valid && active;
-  const T diag_new = live ? ops.sat(ops.add(best, pen)) : ops.inf();
-
-  // query insertion (x, y) -> (x + 1, y): the band shifts down by one
-  bufs[p * slots + t] = ops.sat(vmin(ops.add(ins, ops.ins_ext), ops.add(best, ops.ins_open)));
-  __syncthreads();
-  const T ins_shifted = sub + 1 < width ? bufs[p * slots + t + 1] : ops.inf();
-  p ^= 1;
-  const T ins_new = active ? ins_shifted : ops.inf();
-  const T best_after = vmin(diag_new, ins_new);
-
-  // deletion chain within the new row: min-plus Kogge-Stone scan
-  bufs[p * slots + t] = best_after;
-  __syncthreads();
-  const T shifted = sub > 0 ? bufs[p * slots + t - 1] : ops.inf();
-  p ^= 1;
-  T chain = ops.sat(ops.add(shifted, ops.del_open));
-  for (int step = 1; step < width; step <<= 1) {
-    bufs[p * slots + t] = chain;
-    __syncthreads();
-    const T moved = sub >= step ? bufs[p * slots + t - step] : ops.inf();
-    p ^= 1;
-    chain = vmin(chain, ops.sat(ops.add(moved, ops.step_ext(step))));
-  }
-  if (!live) chain = ops.inf();
-  if (active) {
-    best = vmin(best_after, chain);
-    ins = ins_new;
-  }
-}
-
-// The score captured at x + 1 == n (the trailing window skip is free): the
-// min of `fin` over the candidate's `width` lanes.  Every thread of the
-// block calls it; the result is returned to every lane.
-template <class T>
-__device__ __forceinline__ T capture(T* buf, int t, int sub, int width, T fin) {
-  __syncthreads();  // the DP's last readers of buf are done
-  buf[t] = fin;
-  __syncthreads();
-  for (int w = width; w > 1;) {
-    const int half = (w + 1) / 2;
-    if (sub < w - half) buf[t] = vmin(buf[t], buf[t + half]);
-    __syncthreads();
-    w = half;
-  }
-  return buf[t - sub];
-}
-
-template <class Ops>
-__device__ __forceinline__ typename Ops::T final_lane(const Ops& ops, int n, int64_t lq, int sub,
-                                                      int m, typename Ops::T best) {
-  return n >= 1 && n <= lq && n + sub <= m ? best : ops.inf();
-}
 
 // banded_i16 / banded_f32.
 // grid: one block per candidate; block: `band` threads, thread k = lane k.

@@ -100,6 +100,10 @@ class BatchAligner:
         # device scoring (None disables the pipeline)
         self.pipeline_chunk_reads = pipeline_chunk_reads
         self.paired_vectorized = paired_vectorized
+        # optional DevicePileup (batch/device_pileup.py): clean weight-1.0
+        # emissions are added into accumulators on the device per chunk
+        # instead of the host post-pass (Mapper.java:760-784)
+        self.device_pileup = None
         self.listeners = listeners if listeners is not None else []
         self.fallback_worker = AlignerWorker(reference_index, parameters)
         self.concat = self.seq_db.concatenated_codes()
@@ -125,15 +129,6 @@ class BatchAligner:
         # skip counts land on fallback_worker.stats for the CLI report
         self.cache = None
 
-    @property
-    def device_pileup(self):
-        return None
-
-    @device_pileup.setter
-    def device_pileup(self, value):
-        if value is not None:
-            raise NotImplementedError("the device pileup is not ported yet")
-
     # ------------------------------------------------------------------
 
     def process_batch(
@@ -155,7 +150,7 @@ class BatchAligner:
             if cached is not None and cached.get_num_components() == 1:
                 stats.num_cache_hits += 1
                 new_component = [
-                    option.with_query(q.get_sequences())
+                    _replay(option, q.get_sequences())
                     for option in cached.get_first_alignments()
                 ]
                 results[i] = QueryAlignments.single_component(
@@ -626,7 +621,10 @@ class BatchAligner:
         deferred: list[int] = []
         e_row0, e_row1 = row0[emit], row1[emit]
         e_spacing = spacing[emit]
+        e_inner = combos["inner"][emit]
         ebounds = np.searchsorted(emit_pair, np.arange(num_pairs + 1))
+        dp_rows: list[int] = []  # candidate-table rows to count on the device
+        take_device_pileup = self.device_pileup is not None
         for pi in range(num_pairs):
             if not nonempty[pi]:
                 continue  # no pairing at all: sequential fallback (mate rescue)
@@ -647,8 +645,27 @@ class BatchAligner:
                         float(e_spacing[c]), float(pen0[c]), float(pen1[c]),
                     )
                 )
-            results[pi] = QueryAlignments.single_component(
-                query.get_sequences(), choices
+            result = QueryAlignments.single_component(query.get_sequences(), choices)
+            if (
+                take_device_pileup
+                and len(choices) == 1
+                and choices[0] is not None
+                and int(ebounds[pi + 1]) - int(ebounds[pi]) == 1
+                and e_inner[int(ebounds[pi])] >= 0  # no mate overlap on the ref
+            ):
+                c0 = int(ebounds[pi])
+                dp_rows.append(int(e_row0[c0]))
+                dp_rows.append(int(e_row1[c0]))
+                result.device_counted = True
+            results[pi] = result
+
+        if dp_rows:
+            rows_arr = np.array(dp_rows, dtype=np.int64)
+            rid = table.read_id[rows_arr]
+            gstart = self.seq_db.starts[table.ref_seq_index[rows_arr]] + table.offset[rows_arr]
+            self.device_pileup.add_rows(
+                batch, rid, table.reversed_[rows_arr], gstart, batch.lengths[rid],
+                np.ones(rows_arr.shape[0], dtype=np.float32),
             )
 
         if deferred:
@@ -2130,6 +2147,13 @@ class BatchAligner:
         counts_list = emit_counts.tolist()
         max_num_matches = p.max_num_matches
 
+        dp_rid: list[int] = []
+        dp_rev: list[bool] = []
+        dp_seqidx: list[int] = []
+        dp_off: list[int] = []
+        # the CLI only attaches a DevicePileup when the run has no
+        # ancestral->original rewrite, so presence alone gates the path
+        take_device_pileup = self.device_pileup is not None
         from mapper_tpu.align.blocks import LazyUngappedAlignments
 
         # vectorized in-contig recheck for all emitted rows (the per-row
@@ -2208,7 +2232,26 @@ class BatchAligner:
                 result = LazyUngappedAlignments(
                     query.get_sequences(), rows, materialize
                 )
+            if take_device_pileup and len(rows) == 1:
+                # weight-1.0 clean ungapped emission: count it on the device
+                # (exact in f32; see batch/device_pileup.py) and flag the
+                # result so MatchDatabase skips its host accumulation
+                c0 = ebounds[r]
+                dp_rid.append(r)
+                dp_rev.append(rev_list[c0])
+                dp_seqidx.append(seqidx_list[c0])
+                dp_off.append(off_list[c0])
+                result.device_counted = True
             results[r] = result
+        if dp_rid:
+            rid_arr = np.array(dp_rid, dtype=np.int64)
+            gstart = self.seq_db.starts[np.array(dp_seqidx, dtype=np.int64)] + np.array(
+                dp_off, dtype=np.int64
+            )
+            self.device_pileup.add_rows(
+                batch, rid_arr, np.array(dp_rev, dtype=bool), gstart, batch.lengths[rid_arr],
+                np.ones(len(dp_rid), dtype=np.float32),
+            )
         # classify every read the batch path could not resolve (results[r] is
         # None -> the exact sequential worker owns it); counts feed
         # stats_fallback_reasons for perf diagnosis
@@ -2235,6 +2278,26 @@ class BatchAligner:
                 reasons[reason] = reasons.get(reason, 0) + c
         mark("decisions+emit")
         return results
+
+
+def _replay(option: QueryAlignment, sequences: list[Sequence]) -> QueryAlignment:
+    """A cached alignment on a new query of the same content.  Each component
+    keeps its strand: one aligned as the read's reverse complement gets the
+    new read's reverse complement.  (`QueryAlignment.with_query` gives every
+    component the forward read, so a reverse-strand hit would print its SEQ
+    uncomplemented and add the wrong alleles to the pileup.)"""
+    components = [
+        c.with_sequence_a(
+            sequences[i].reverse_complement()
+            if c.get_sequence_a().complemented_from is not None
+            else sequences[i]
+        )
+        for i, c in enumerate(option.get_components())
+    ]
+    return QueryAlignment(
+        components, option.spacing_penalty, option.overlap_multiplier,
+        option.duplication_bonus, option.total_penalty, option.inner_distance,
+    )
 
 
 def _tables(database):

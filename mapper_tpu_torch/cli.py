@@ -7,8 +7,11 @@ Usage matches `python -m mapper_tpu` (and the reference jar):
         --out-sam out.sam --out-vcf out.vcf [options]
 
 The batch engine runs on `MAPPER_TPU_TORCH_DEVICE` (default `cuda`; a run
-asking for CUDA without a card exits with an error).  Argument helpers,
-writers and detectors are the JAX package's own host code.
+asking for CUDA without a card exits with an error).  With
+`MAPPER_TPU_DEVICE_PILEUP=1` and `--out-vcf` or `--out-mutations` (and no
+`--infer-ancestors`), the clean ungapped alignments' pileup is accumulated
+on that device (`batch/device_pileup.py`).  Argument helpers, writers and
+detectors are the JAX package's own host code.
 """
 
 from __future__ import annotations
@@ -288,8 +291,6 @@ def main(argv: list[str] | None = None) -> int:
         mutation_penalty = 1.0
     if query_end_fraction < 0 or query_end_fraction >= 1:
         usage_error("--distinguish-query-ends must be >= 0 and < 1")
-    if os.environ.get("MAPPER_TPU_DEVICE_PILEUP") == "1":
-        usage_error("MAPPER_TPU_DEVICE_PILEUP=1: the device pileup is not supported by mapper_tpu_torch yet")
 
     parameters = AlignmentParameters.defaults(
         mutation_penalty=mutation_penalty,
@@ -513,6 +514,19 @@ def run(
         # cache-less so hits/stores are not double-counted
         engine_obj.cache = cache
         worker_stats = engine_obj.fallback_worker.stats
+        # device-side pileup (opt-in): clean emissions are added into
+        # accumulators on the engine's device per chunk (Mapper.java:760-784)
+        if (
+            os.environ.get("MAPPER_TPU_DEVICE_PILEUP") == "1"
+            and (out_vcf_path is not None or out_mutations_path is not None)
+            and not guess_reference_ancestors
+        ):
+            from mapper_tpu_torch.batch.device_pileup import DevicePileup
+
+            try:
+                engine_obj.device_pileup = DevicePileup(sequence_database, query_end_fraction, device)
+            except ValueError as e:
+                log(f"Device pileup not taken, the pileup stays on the host: {e}")
     else:
         engine_obj = worker
         worker_stats = worker.stats
@@ -612,6 +626,11 @@ def run(
     )
 
     # --- outputs ---------------------------------------------------------
+
+    device_pileup = getattr(engine_obj, "device_pileup", None)
+    if device_pileup is not None:
+        device_pileup.merge_into(match_database)
+        log(f"Device pileup: {device_pileup.num_rows_accumulated} rows counted on the device")
 
     if out_refs_map_count_path is not None:
         refs_counter.sum_alignments(out_refs_map_count_path)

@@ -76,7 +76,6 @@ def test_cli_outputs_byte_identical(monkeypatch, tmp_path, inputs, kind):
         (["--devices", "2"], {}),
         (["--num-processes", "2"], {}),
         (["--coordinator", "localhost:1234"], {}),
-        ([], {"MAPPER_TPU_DEVICE_PILEUP": "1"}),
     ],
 )
 def test_cli_rejects_what_is_not_ported(monkeypatch, tmp_path, inputs, extra, env):

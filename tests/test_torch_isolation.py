@@ -80,6 +80,83 @@ def test_no_jax_import_in_port_sources():
                     assert name != bad and not name.startswith(bad + "."), (path, name)
 
 
+_NO_JAX_PROBES_AND_PILEUP = r"""
+import contextlib, io, os, sys, tempfile
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+from pathlib import Path
+import numpy as np
+from mapper_tpu_torch import cli
+from mapper_tpu_torch.probe_i16.__main__ import main as probe_main
+from benchmarks.simlib import random_reference, write_reference
+from mapper_tpu_torch.simulate import simulate_reads, write_fastq
+
+os.environ["MAPPER_TPU_TORCH_DEVICE"] = "cpu"
+for stage in "abcdefghi":
+    assert probe_main([stage]) == 0, stage
+root = Path(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+ref = random_reference(rng, 8000)
+write_reference(str(root / "ref.fasta"), {"chr1": ref})
+write_fastq(root / "reads.fastq", simulate_reads(rng, ref, 40, 100))
+os.environ["MAPPER_TPU_DEVICE_PILEUP"] = "1"
+err = io.StringIO()
+with contextlib.redirect_stderr(err):
+    rc = cli.main(["--reference", str(root / "ref.fasta"), "--queries", str(root / "reads.fastq"),
+                   "--out-vcf", str(root / "out.vcf"), "--out-mutations", str(root / "mut.txt")])
+assert rc == 0
+assert "Device pileup:" in err.getvalue(), err.getvalue()[-2000:]
+assert sys.modules["jax"] is None
+assert not [m for m in sys.modules if m.startswith("jax.") or m.startswith("jaxlib")]
+print("OK")
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_probes_and_device_pileup_run_with_jax_blocked(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_PROBES_AND_PILEUP], cwd=tmp_path, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.rstrip().endswith("OK")
+    assert proc.stdout.count(": OK") == 40
+
+
+def test_probe_entry_cuda_without_card_exits_nonzero(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    env = _env()
+    env["MAPPER_TPU_TORCH_DEVICE"] = "cuda"
+    proc = subprocess.run(
+        [sys.executable, "-m", "mapper_tpu_torch.probe_i16", "g"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert ": OK" not in proc.stdout
+
+
+def test_library_key_covers_the_shared_header(monkeypatch, tmp_path):
+    """The build is keyed by every source and header: editing dp_core.cuh,
+    which both sources include, names another library."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in kernels.CSRC.iterdir():
+        (csrc / path.name).write_bytes(path.read_bytes())
+    real = kernels.library_path(tmp_path)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    assert kernels.library_path(tmp_path) == real
+    assert [p.name for p in kernels.sources()] == ["banded_dp.cu", "probe_i16.cu"]
+    header = csrc / "dp_core.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert kernels.library_path(tmp_path) != real
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "find_nvcc", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card.  Skipped without one.  Imports no JAX, so it also runs where JAX is not
+card, and the device pileup on the card against the same on the CPU.
+Skipped without one.  Imports no JAX, so it also runs where JAX is not
 installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -9,8 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from benchmarks.simlib import random_reference
 from mapper_tpu.align.params import AlignmentParameters
+from mapper_tpu.batch.candidates import ReadBatch
+from mapper_tpu.pileup import MatchDatabase
+from mapper_tpu.sequence import Sequence, SequenceDatabase, sort_and_complement
 from mapper_tpu_torch.align import banded, kernels
+from mapper_tpu_torch.batch.device_pileup import DevicePileup
+from mapper_tpu_torch.probe_i16 import probes
 from mapper_tpu_torch.simulate import scoring_candidates
 
 pytestmark = pytest.mark.cuda
@@ -186,3 +193,60 @@ def test_wrapper_rejects_bad_inputs(cuda):
         kernels.banded_f32(*bad, banded._params_tuple(AlignmentParameters.defaults()), 32)
     with pytest.raises(ValueError):
         kernels.banded_f32(*[a.cpu() for a in args], (1.0,) * 6, 32)
+
+
+@pytest.mark.parametrize(
+    "stage,body", [(stage, body) for stage, bodies in probes.STAGES.items() for body in bodies]
+)
+def test_probe_body_equals_plain(cuda, stage, body):
+    """Each probe body's kernel equals its plain version exactly: on the
+    probes' own input, over the whole int16 range (adds wrap), and on a
+    block of another width."""
+    rng = np.random.default_rng(sum(map(ord, stage + body)))
+    blocks = [
+        probes.probe_input(cuda),
+        torch.from_numpy(rng.integers(-2**15, 2**15, (probes.T, probes.B)).astype(np.int16)).to(cuda),
+        torch.from_numpy(rng.integers(-2**15, 2**15, (7, 200)).astype(np.int16)).to(cuda),
+    ]
+    for x in blocks:
+        before = kernels.LAUNCHES[f"probe_i16_{stage}"]
+        got = probes.run(stage, body, x)
+        assert kernels.LAUNCHES[f"probe_i16_{stage}"] == before + 1
+        want = probes.plain(stage, body, x)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int16 and got.shape == want.shape
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), probes.plain(stage, body, x.cpu()))
+
+
+def test_device_pileup_on_the_card_equals_the_cpu(cuda):
+    rng = np.random.default_rng(11)
+    contigs = sort_and_complement(
+        [Sequence.from_text("c1", random_reference(rng, 5000)),
+         Sequence.from_text("c2", random_reference(rng, 3000))]
+    )
+    seq_db = SequenceDatabase(contigs)
+    reads, rid, rev, gstart, n = [], [], [], [], []
+    for i in range(4000):  # many rows per position: the atomic adds collide
+        k = int(rng.integers(0, 2)) * 2  # forward contigs sit at even indices here
+        assert contigs[k].complemented_from is None
+        length = int(rng.integers(60, 150))
+        off = int(rng.integers(0, len(contigs[k]) - length))
+        reads.append(Sequence.from_text(f"r{i}", contigs[k].get_range(off, length)))
+        rid.append(i)
+        rev.append(bool(rng.random() < 0.5))
+        gstart.append(int(seq_db.starts[k]) + off)
+        n.append(length)
+    args = (ReadBatch.from_sequences(reads), np.array(rid), np.array(rev), np.array(gstart),
+            np.array(n), np.ones(len(rid), dtype=np.float32))
+    merged = []
+    for device in (cuda, torch.device("cpu")):
+        pileup = DevicePileup(seq_db, 0.1, device)
+        pileup.add_rows(*args)
+        db = MatchDatabase(0.1)
+        pileup.merge_into(db)
+        merged.append({s.name: p for s, p in db.group_by_position().items()})
+    assert set(merged[0]) == set(merged[1]) == {"c1", "c2"}
+    for name, p in merged[0].items():
+        np.testing.assert_array_equal(p.middle, merged[1][name].middle)
+        np.testing.assert_array_equal(p.end, merged[1][name].end)
