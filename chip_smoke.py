@@ -11,12 +11,19 @@ Phases (each raises on failure; nothing is caught):
    width 192, bands 64 and 128, 16,384 candidates, exact equality;
    banded_f32 at width 1024, band 128, 4,096 candidates, within 1e-5;
    banded_i16_packed on the host-window rows of width 192 (256 padded) at
-   band 64, exact; banded_roll_f32 and banded_chunk_f32 (chunk 128) on the
-   rows of width 1024 at band 128, within 1e-5;
+   band 64, exact, timed in turns against banded_i16 on the same rows;
+   banded_roll_f32 and banded_chunk_f32 (chunk 128) on the rows of width
+   1024 at band 128, within 1e-5;
    the probe kernels P1-P9: all 40 bodies on the probes' own [64, 128]
    input, on a seeded one over the whole int16 range and at [16384, 128]
    (one row per candidate of the 150 bp phase), each exactly equal to its
-   plain version, and timed at [16384, 128];
+   plain version, and timed at [16384, 128] by CUDA-graph replay, in turns
+   with its one PyTorch call where one computes the same function
+   (`PROBE_LIBRARY`, held equal to the plain version first).
+   Each kernel's bound is computed from this run's inputs: the larger of
+   the operations its DP cells need (`DP_RATES`: operations a cell, min(n,
+   LQ) x band cells, over the card's rate for their type) and its bytes
+   (each input read once, each output written once) over the memory rate;
 3. the probe path: `python -m mapper_tpu_torch.probe_i16 <stage>` for each
    of the nine stages, in this process with the launch counts read around
    it (every stage's kernel must launch, every body print "OK exact"),
@@ -34,8 +41,10 @@ Phases (each raises on failure; nothing is caught):
    reference, the size of E. coli K-12: 100,000 single-end 150 bp reads
    (1% SNPs, a 1-3 bp indel in 10% of reads, half reverse-complemented) and
    2,000 reads of 1,000 bp in a second run, each with --out-sam --out-vcf
-   --out-mutations --out-refs-map-count --out-unaligned.  Both kernels must
-   launch, at least 99% of reads must align, and SAM, VCF and mutations must
+   --out-mutations --out-refs-map-count --out-unaligned.  The first is the
+   main path (the default CLI run), its launch counts read around it alone;
+   banded_i16 must launch there and banded_f32 in the second; at least 99%
+   of reads must align, and SAM, VCF and mutations must
    be byte-identical to the same runs scored by the exact native DP on the
    host (MAPPER_TPU_HOST_SCORING=1, with the ceiling raised to 1,024 bp so
    the long reads are host-scored too), which must launch no kernel;
@@ -44,9 +53,12 @@ Phases (each raises on failure; nothing is caught):
    must launch, rows must have been counted on the card, and SAM, VCF and
    mutations must be byte-identical to the run without it.
 
-The line before the last lists the kernels as JSON; the last line is
-{"ok": true, "device": {...}}.  Exits non-zero without a card, and without
-the rest of the repository beside this file.
+The line before the last but one lists the kernels as JSON, each with its
+time, plain time, bound, what bounds it, library time (or null) and its
+launches on its own path and on the main path; the line before the last is
+the card's name and power limit; the last line is {"ok": true, "device":
+{...}}.  Exits non-zero without a card, and without the rest of the
+repository beside this file.
 """
 
 from __future__ import annotations
@@ -64,8 +76,10 @@ import tempfile
 import time
 from pathlib import Path
 
-# the port runs without JAX: any import of it fails from here on
+# the port runs without JAX and without the JAX package: any import of
+# either fails from here on
 sys.modules["jax"] = None
+sys.modules["mapper_tpu"] = None
 # the host-scored twins score every read on the host, the 1,000 bp ones too
 # (the engine reads this ceiling when it is imported; it defaults to 600 bp)
 os.environ["MAPPER_TPU_HOST_SCORING_MAX_LEN"] = "1024"
@@ -85,6 +99,38 @@ CHUNK = 128
 # (read width, band) -> (candidates, seed) of the host-window path
 HOST_WINDOW_SHAPES = {(192, 64): (16384, 64), (192, 128): (16384, 128), (1024, 128): (4096, 7)}
 PROBE_ROWS = 16384  # the probes' timing block: one row per candidate of the 150 bp phase
+PROBE_TURN_CALLS = 50  # calls a replay, when a probe body is timed in turns with its library call
+
+# The card's peaks for the bounds (NVIDIA H100 SXM at its 700 W limit):
+# memory 3.35 TB/s; 132 SMs at a 1.98 GHz boost clock, each with 64 int32 and
+# 128 float32 lanes, so 16.7 T int32 and 33.5 T float32 operations a second
+# (the 67 TFLOP/s float32 figure counts a fused multiply-add as two; the
+# DP's adds and mins are one operation each).  An int32 lane takes two int16
+# in one s16x2 instruction (SIMD `__vmins2`, DPX `__viaddmin_s16x2`), so the
+# int16 DP's rate is twice the int32 one: 33.5 T int16 operations a second.
+MEM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+I16_OPS_PER_S = 2 * INT32_OPS_PER_S
+F32_OPS_PER_S = 132 * 128 * 1.98e9
+# operations a float32 DP cell needs: the penalty lookup, the diagonal add
+# and clamp, the insertion open and extend with their min and clamp, the min
+# of the diagonal and the insertion, the deletion open and extend (a
+# sequential scan along the band), their min, the validity select and the
+# diagonal sum's add
+F32_OPS_PER_CELL = 12
+# the same cell in int16 with DPX, where one instruction takes min(a + b, c):
+# the penalty lookup 1; the diagonal add and clamp 1; the insertion extend
+# and clamp, then its open and their min, 2; the min of the diagonal and the
+# insertion 1; the deletion open and clamp, then its extend and the min with
+# the chain, 2; the final min 1; the validity select 1; the diagonal sum's
+# add 1.  The lookup and the int32 sum are not int16 pairs; counting them at
+# the int16 rate as well only lowers the bound.
+I16_OPS_PER_CELL = 10
+# (operations a cell, operations a second) of each DP type.  A bound is the
+# work's, not the code's: banded_i16_packed computes the same int16 DP as
+# banded_i16, so it takes the same bound, although it holds its state in
+# int32 registers.
+DP_RATES = {"i16": (I16_OPS_PER_CELL, I16_OPS_PER_S), "f32": (F32_OPS_PER_CELL, F32_OPS_PER_S)}
 
 
 def gpu_line() -> str:
@@ -138,9 +184,31 @@ def graph_ms(fn, reps: int) -> float:
     return ms
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(cells: float, dp_type: str, moved_bytes: float) -> tuple[float, str]:
+    """(least ms, what bounds it): the larger of the operations the DP cells
+    need over the card's rate for their type (`DP_RATES`) and the bytes moved
+    (each input read once, each output written once) over its memory rate."""
+    ops_per_cell, ops_per_s = DP_RATES[dp_type]
+    ops_ms = cells * ops_per_cell / ops_per_s * 1e3
+    bytes_ms = moved_bytes / MEM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def cells_of(n, lq: int, band: int) -> float:
+    """DP cells the candidates need: min(n, lq) query positions times the band."""
+    import torch
+
+    return float(torch.clamp(torch.as_tensor(n).to(torch.int64), max=lq).sum()) * band
+
+
 def compare_kernel(name, lq, band, num_cands, params, seed, device):
     """Kernel vs plain version on the card: (max |difference|, kernel ms,
-    plain ms); prints the kernel's Gcells/s beside them."""
+    plain ms, bound ms, what bounds it); prints the kernel's Gcells/s beside
+    them."""
     import numpy as np
     import torch
 
@@ -171,8 +239,10 @@ def compare_kernel(name, lq, band, num_cands, params, seed, device):
         raise AssertionError(f"{name}: only {finite:.2f} of the rows scored")
     ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 3)
-    _report(name, f"lq={lq} band={band} B={num_cands}", err, ms, plain_ms, float(cands["n"].sum()) * band)
-    return err, ms, plain_ms
+    cells = cells_of(cands["n"], lq, band)
+    bound_ms, bound_by = bound(cells, "i16" if name == "banded_i16" else "f32", nbytes(*args, got))
+    _report(name, f"lq={lq} band={band} B={num_cands}", err, ms, plain_ms, cells, bound_ms, bound_by)
+    return err, ms, plain_ms, bound_ms, bound_by
 
 
 def host_window_inputs(device):
@@ -197,17 +267,19 @@ def host_window_inputs(device):
     return inputs
 
 
-def _report(name, shape, err, ms, plain_ms, cells):
+def _report(name, shape, err, ms, plain_ms, cells, bound_ms, bound_by):
     print(
         f"[kernel] {name} {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, {cells / ms / 1e6:.2f} Gcells/s",
+        f"plain {plain_ms:.4f} ms, {cells / ms / 1e6:.2f} Gcells/s, bound {bound_ms:.4f} ms "
+        f"({bound_by}), {bound_ms / ms:.3f} of it",
         flush=True,
     )
 
 
 def compare_host_row_kernels(params, inputs) -> dict:
     """K3, K4 and K5 against their plain versions on the card, at the
-    host-window path's shapes: {name: (max |difference|, kernel ms, plain ms)}."""
+    host-window path's shapes: {name: (max |difference|, kernel ms, plain ms,
+    bound ms, what bounds it)}."""
     import torch
 
     from mapper_tpu_torch.align import banded, kernels
@@ -231,9 +303,13 @@ def compare_host_row_kernels(params, inputs) -> dict:
     err = max(float((g - p).abs().max()) for g, p in zip(got, want))
     if not all(torch.equal(g, p) for g, p in zip(got, want)):
         raise AssertionError(f"banded_i16_packed: kernel != plain (max error {err})")
-    results["banded_i16_packed"] = (err, cuda_ms(packed, 20), cuda_ms(packed_plain, 2))
-    _report("banded_i16_packed", f"lq={q.shape[1]} band=64 B={q.shape[0]}", *results["banded_i16_packed"],
-            float(n.sum()) * 64)
+    cells = cells_of(n, q.shape[1], 64)
+    results["banded_i16_packed"] = (
+        err, cuda_ms(packed, 20), cuda_ms(packed_plain, 2),
+        *bound(cells, "i16", nbytes(q, w, n, m, *got)),
+    )
+    _report("banded_i16_packed", f"lq={q.shape[1]} band=64 B={q.shape[0]}", *results["banded_i16_packed"][:3],
+            cells, *results["banded_i16_packed"][3:])
 
     # band 64 on the same candidates, timed in turns (A B C C B A): banded_i16
     # on the gathered path, banded_i16 on the host rows, banded_i16_packed
@@ -273,8 +349,9 @@ def compare_host_row_kernels(params, inputs) -> dict:
             raise AssertionError(f"{name}: max error {err} > 1e-5")
         if float((got < 1e8).float().mean()) < 0.5:
             raise AssertionError(f"{name}: fewer than half of the rows scored")
-        results[name] = (err, cuda_ms(kernel, 20), plain_ms)
-        _report(name, f"lq={q.shape[1]} band=128 B={q.shape[0]}", *results[name], float(n.sum()) * 128)
+        cells = cells_of(n, q.shape[1], 128)
+        results[name] = (err, cuda_ms(kernel, 20), plain_ms, *bound(cells, "f32", nbytes(q, w, n, m, got)))
+        _report(name, f"lq={q.shape[1]} band=128 B={q.shape[0]}", *results[name][:3], cells, *results[name][3:])
     return results
 
 
@@ -339,13 +416,37 @@ def host_window_phase(params, inputs, kernels) -> dict:
     return launches
 
 
+# one PyTorch call that computes a probe body's function (its yardstick,
+# `library_ms`), where one exists; the port calls none of them
+PROBE_LIBRARY = {
+    ("a", "copy"): lambda x: x.clone(),
+    ("a", "widen_reduce"): lambda x: x.amin(dim=1, keepdim=True),
+    ("a", "narrow_out"): lambda x: x[:, :1].clone(),
+    ("a", "scratch_i16"): lambda x: x.clone(),
+    ("b", "add_only_scalar"): lambda x: x + 3,
+    ("b", "min_only_scalar"): lambda x: x.clamp(max=90),
+    ("c", "reduce_i32"): lambda x: x.amin(dim=1, keepdim=True),
+    ("e", "sub"): lambda x: x - 3,
+    ("e", "shr"): lambda x: x >> 15,
+    ("e", "band"): lambda x: x & 7,
+    ("e", "vec_add"): lambda x: x + x,
+    ("g", "reduce"): lambda x: x.amin(dim=1, keepdim=True),
+}
+
+# the part of its input a probe body's function reads, where it is not all
+PROBE_READS = {("a", "narrow_out"): lambda x: x[:, :1]}
+
+
 def compare_probes(device) -> dict:
     """Every probe body's kernel against its plain version on the card,
     exactly, at [64, 128] (the probes' own input and a seeded one over the
     whole int16 range) and at [PROBE_ROWS, 128]; each timed at the larger
     shape by CUDA-graph replay (`graph_ms`), device time without the host's
-    pace.  Returns {stage: (max |difference|, kernel ms, plain ms)}, the
-    times summed over the stage's bodies."""
+    pace, in turns with its one-call yardstick where `PROBE_LIBRARY` has one
+    (held equal to the plain version first), beside its byte bound.  Returns {stage:
+    (max |difference|, kernel ms, plain ms, bound ms, library ms or None,
+    bodies with a library call, per-body rows)}, the times summed over the
+    stage's bodies (the library time over those that have one)."""
     import numpy as np
     import torch
 
@@ -360,7 +461,7 @@ def compare_probes(device) -> dict:
     blocks = [probes.probe_input(device), block(probes.T), big]
     results = {}
     for stage, bodies in probes.STAGES.items():
-        err, ms, plain_ms = 0.0, 0.0, 0.0
+        err, ms, plain_ms, bound_ms, library_ms, rows = 0.0, 0.0, 0.0, 0.0, 0.0, []
         for body in bodies:
             for x in blocks:
                 got, want = probes.run(stage, body, x), probes.plain(stage, body, x)
@@ -368,13 +469,48 @@ def compare_probes(device) -> dict:
                 err = max(err, float((got.to(torch.int32) - want.to(torch.int32)).abs().max()))
                 if not torch.equal(got, want):
                     raise AssertionError(f"probe {stage}.{body}: kernel != plain at {tuple(x.shape)}")
-            ms += graph_ms(lambda: probes.run(stage, body, big), 20)
-            plain_ms += graph_ms(lambda: probes.plain(stage, body, big), 20)
-        results[stage] = (err, ms, plain_ms)
+            out = probes.plain(stage, body, big)
+
+            def kernel():
+                return probes.run(stage, body, big)
+
+            row = {
+                "body": body,
+                "plain_ms": graph_ms(lambda: probes.plain(stage, body, big), 20),
+                "bound_ms": nbytes(PROBE_READS.get((stage, body), lambda x: x)(big), out)
+                / MEM_BYTES_PER_S * 1e3,
+                "library_ms": None,
+            }
+            library = PROBE_LIBRARY.get((stage, body))
+            if library is None:
+                row["ms"] = graph_ms(kernel, 20)
+            else:
+                if not torch.equal(library(big), out):
+                    raise AssertionError(f"probe {stage}.{body}: the library call != plain")
+                # kernel and library call in turns (A B B A), each reading one
+                # replay of PROBE_TURN_CALLS calls; the means are the row's
+                turns = {"ms": [], "library_ms": []}
+                pair = (("ms", kernel), ("library_ms", lambda: library(big)))
+                for key, fn in (*pair, *reversed(pair)):
+                    turns[key].append(graph_ms(fn, PROBE_TURN_CALLS))
+                row.update({key: sum(v) / len(v) for key, v in turns.items()}, turns=turns)
+                library_ms += row["library_ms"]
+            ms, plain_ms, bound_ms = ms + row["ms"], plain_ms + row["plain_ms"], bound_ms + row["bound_ms"]
+            rows.append(row)
+            print(
+                f"[probe-body] {stage}.{body} [{PROBE_ROWS}, {probes.B}]: kernel {row['ms'] * 1e3:.3f} us, "
+                f"plain {row['plain_ms'] * 1e3:.2f} us, library "
+                + ("none" if library is None else
+                   f"{row['library_ms'] * 1e3:.3f} us (in turns: kernel/library {row['ms'] / row['library_ms']:.3f})")
+                + f", bound {row['bound_ms'] * 1e3:.2f} us (bytes), {row['bound_ms'] / row['ms']:.3f} of it",
+                flush=True,
+            )
+        with_library = sum(r["library_ms"] is not None for r in rows)
+        results[stage] = (err, ms, plain_ms, bound_ms, library_ms if with_library else None, with_library, rows)
         print(
             f"[kernel] probe_i16_{stage} ({len(bodies)} bodies) [{PROBE_ROWS}, {probes.B}]: "
-            f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (sums over the bodies, "
-            "CUDA-graph replay)",
+            f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), "
+            f"library {library_ms:.4f} ms over {with_library} bodies (sums over the bodies, CUDA-graph replay)",
             flush=True,
         )
     return results
@@ -496,18 +632,24 @@ def run_cli(root: Path, queries: str, tag: str, host_scoring: bool) -> dict:
     return result
 
 
-def cli_phase(root: Path, kernels) -> tuple[dict, dict]:
-    """The main path: kernel-scored CLI runs (launches counted) and their
-    host-scored twins (which launch nothing); returns the launch counts of
-    the kernel runs and the short kernel-scored run."""
+def cli_phase(root: Path, kernels) -> tuple[dict, dict, dict]:
+    """The CLI path: kernel-scored CLI runs (launches counted) and their
+    host-scored twins (which launch nothing).  The main path is the first:
+    100,000 single-end 150 bp reads, the default CLI run, its launch counts
+    read around it alone.  Returns the launch counts of the main path and of
+    both kernel runs, and the short kernel-scored run."""
     kernels.reset_launches()
     short = run_cli(root, "short.fastq", "short_kernel", host_scoring=False)
+    main_launches = dict(kernels.LAUNCHES)
+    print(f"[cli] kernel launches in the main path (100,000 reads of 150 bp): {main_launches}", flush=True)
+    if main_launches["banded_i16"] <= 0:
+        raise AssertionError("banded_i16 was not launched by the main path")
     long_ = run_cli(root, "long.fastq", "long_kernel", host_scoring=False)
     launches = dict(kernels.LAUNCHES)
-    print(f"[cli] kernel launches in the main path: {launches}", flush=True)
+    print(f"[cli] kernel launches in both kernel-scored CLI runs: {launches}", flush=True)
     for name in ("banded_i16", "banded_f32"):  # the engine's gathered scorer
         if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched by the main path")
+            raise AssertionError(f"{name} was not launched by the CLI runs")
     for run in (short, long_):
         if run["aligned_fraction"] < 0.99:
             raise AssertionError(f"aligned fraction {run['aligned_fraction']} < 0.99")
@@ -522,7 +664,7 @@ def cli_phase(root: Path, kernels) -> tuple[dict, dict]:
             if kernel_run[out] != host_run[out]:
                 raise AssertionError(f"{tag}: {out} differs from the host-scored run")
         print(f"[cli] {tag}: SAM, VCF and mutations byte-identical to the host-scored run", flush=True)
-    return launches, short
+    return main_launches, launches, short
 
 
 def device_pileup_phase(root: Path, kernels, short: dict) -> dict:
@@ -557,13 +699,69 @@ def device_pileup_phase(root: Path, kernels, short: dict) -> dict:
     return launches
 
 
+def _dp_rate(dp_type: str) -> dict:
+    """The operation count and rate a DP kernel's bound used."""
+    ops_per_cell, ops_per_s = DP_RATES[dp_type]
+    return {"bound_ops_per_cell": ops_per_cell, "bound_ops_per_s": ops_per_s}
+
+
+def kernel_entries(i16, f32, host_rows, probe_rows, by_path) -> list[dict]:
+    """The `kernels` line: one entry per kernel with its own path's launches
+    ("launches", the CLI for the engine's kernels, the host-window path for
+    K3-K5, the probe entry for P1-P9), its launches in the main path, the
+    100,000-read single-end CLI run ("launches_main_path"), each path's count
+    read around that path alone ("launches_by_path"), and its times, bound and
+    yardstick.  Raises if a kernel has no launch on its own path."""
+    from mapper_tpu_torch.probe_i16.probes import SITES
+
+    # name -> (source, replaces, path, max |error|, ms, plain ms, bound ms,
+    # what bounds it, library ms, extra keys)
+    none = "no single PyTorch call computes a banded affine-gap DP"
+    rows = {
+        # i16 at band 64: the band 150 bp reads take at default penalties
+        "banded_i16": (KERNEL_SOURCE, REPLACES["banded_i16"], "cli", max(r[0] for r in i16),
+                       *i16[0][1:], None, {"library": none, **_dp_rate("i16"), "by_band": {
+                           band: {"ms": r[1], "plain_ms": r[2], "bound_ms": r[3]}
+                           for band, r in zip((64, 128), i16)}}),
+        "banded_f32": (KERNEL_SOURCE, REPLACES["banded_f32"], "cli", *f32, None,
+                       {"library": none, **_dp_rate("f32")}),
+        **{name: (KERNEL_SOURCE, REPLACES[name], "host_window", *host_rows[name], None,
+                  {"library": none, **_dp_rate("i16" if name == "banded_i16_packed" else "f32")})
+           for name in ("banded_i16_packed", "banded_roll_f32", "banded_chunk_f32")},
+        **{f"probe_i16_{stage}": (PROBE_SOURCE, site, "probe_i16", *probe_rows[stage][:3], probe_rows[stage][3],
+                                  "bytes", probe_rows[stage][4], {
+                                      "library": f"sum over the {probe_rows[stage][5]} of "
+                                                 f"{len(probe_rows[stage][6])} bodies with one PyTorch call",
+                                      "bodies": probe_rows[stage][6]})
+           for stage, site in SITES.items()},
+    }
+    entries = []
+    for name, (source, replaces, path, err, ms, plain_ms, bound_ms, bound_by, library_ms, extra) in rows.items():
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "path": path, "launches": by_path[path][name],
+            "launches_main_path": by_path["main_path"][name],
+            "launches_by_path": {p: counts.get(name, 0) for p, counts in by_path.items()},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            # probes: one CUDA-graph replay of 20 calls; the rest: 20 calls
+            # issued from Python, each much longer than its issue time
+            "timing": "cuda_graph_replay" if path == "probe_i16" else "cuda_events",
+            **extra,
+        })
+    for entry in entries:
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{entry['name']} has no launches on its path {entry['path']}")
+    return entries
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from mapper_tpu.align.params import AlignmentParameters
+    from mapper_tpu_torch.align.params import AlignmentParameters
     from mapper_tpu_torch.align import kernels
 
     device = torch.device("cuda", 0)
@@ -574,7 +772,7 @@ def main() -> int:
     print(f"[build] kernels built in {time.time() - t0:.2f} s", flush=True)
     # the host's native C++ libraries build at first use as well: build them
     # here so no timed run pays for it
-    from mapper_tpu import native
+    from mapper_tpu_torch import native
 
     t0 = time.time()
     for get in (native.get_library, native.get_candidates_library,
@@ -599,49 +797,18 @@ def main() -> int:
         simulate_inputs(root, 4_600_000, 100_000, 2_000)
         print(f"[data] simulated in {time.time() - t0:.1f} s", flush=True)
         os.environ["MAPPER_TPU_TORCH_DEVICE"] = "cuda"
-        cli_launches, short = cli_phase(root, kernels)
+        main_launches, cli_launches, short = cli_phase(root, kernels)
         pileup_launches = device_pileup_phase(root, kernels, short)
 
-    from mapper_tpu_torch.probe_i16.probes import SITES
-
-    # (name, source, replaces, path, max |error|, ms, plain ms)
-    rows = [
-        # i16 at band 64: the band 150 bp reads take at default penalties
-        ("banded_i16", KERNEL_SOURCE, REPLACES["banded_i16"], "cli",
-         max(e for e, _, _ in i16), i16[0][1], i16[0][2]),
-        ("banded_f32", KERNEL_SOURCE, REPLACES["banded_f32"], "cli", *f32),
-        *((name, KERNEL_SOURCE, REPLACES[name], "host_window", *host_rows[name])
-          for name in ("banded_i16_packed", "banded_roll_f32", "banded_chunk_f32")),
-        *((f"probe_i16_{stage}", PROBE_SOURCE, site, "probe_i16", *probe_rows[stage])
-          for stage, site in SITES.items()),
-    ]
-    # "launches" is the count of the kernel's own path ("path"): the CLI for
-    # the engine's kernels, the host-window path for K3-K5, the probe entry
-    # for P1-P9; each path's count, read around that path alone, is under
-    # "launches_by_path"
     by_path = {
-        "cli": cli_launches, "host_window": window_launches, "probe_i16": probe_launches,
-        "device_pileup": pileup_launches,
+        "main_path": main_launches, "cli": cli_launches, "host_window": window_launches,
+        "probe_i16": probe_launches, "device_pileup": pileup_launches,
     }
-    entries = []
-    for name, source, replaces, path, err, ms, plain_ms in rows:
-        entries.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "path": path, "launches": by_path[path][name],
-            "launches_by_path": {p: counts.get(name, 0) for p, counts in by_path.items()},
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            # probes: one CUDA-graph replay of 20 calls; the rest: 20 calls
-            # issued from Python, each much longer than its issue time
-            "timing": "cuda_graph_replay" if path == "probe_i16" else "cuda_events",
-        })
-    for entry in entries:
-        if entry["launches"] <= 0:
-            raise AssertionError(f"{entry['name']} has no launches on its path {entry['path']}")
+    entries = kernel_entries(i16, f32, host_rows, probe_rows, by_path)
     print(json.dumps({"kernels": entries}))
     print(gpu)
-    # the run drove one card, whatever else the host has
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     return 0
 

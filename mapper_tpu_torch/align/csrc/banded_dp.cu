@@ -12,7 +12,8 @@
 //                         band 64;
 //   banded_roll_f32    <- _pallas_kernel_roll (whole rows staged once);
 //   banded_chunk_f32   <- _pallas_kernel (rows staged chunk by chunk).
-// All five run the same DP step (dp_step in dp_core.cuh).
+// All five run the same DP step (dp_core.cuh): banded_i16 at bands 64 and
+// 128 through its warp-level pieces, the rest through its block-level ones.
 //
 // What bounds them on this card: per DP cell the work is a few integer or
 // float adds, mins and selects on data already in registers, and the bytes
@@ -21,19 +22,25 @@
 // each query position of a candidate depends on the previous one, so one
 // candidate's x loop is serial, and the deletion chain inside a row needs
 // log2(band) dependent exchange steps between lanes.
-// What the design does about it: one block per candidate (per pair for the
-// packed kernel) and one thread per band lane, so the band-wide vector ops of
-// the TPU kernels become per-thread scalar ops and the lane shifts become
-// shared-memory exchanges through two ping-pong buffers (one barrier per
-// exchange).  Many independent candidates run on each SM (up to 32 blocks of
-// 64 lanes, or 16 of 128) to hide the barrier and shared-memory latency.
+// What the design does about it: banded_i16 at bands 64 and 128, the main
+// path's scorer, runs one warp per candidate with two or four lanes a thread,
+// its exchanges register shuffles and its arithmetic on two int16 lanes at
+// once (see banded_i16_warp_kernel).  The others run one block per candidate
+// (per pair for the packed kernel) and one thread per band lane, so the
+// band-wide vector ops of the TPU kernels become per-thread scalar ops and
+// the lane shifts become shared-memory exchanges through two ping-pong
+// buffers (one barrier per exchange); many independent candidates run on
+// each SM (up to 32 blocks of 64 lanes, or 16 of 128) to hide the barrier
+// and shared-memory latency.
 //
 // Bit-parity with the reference: the float path uses __fadd_rn/__fmul_rn/
 // __fdiv_rn so no multiply-add is ever contracted, keeps the Kogge-Stone
 // order min(chain, moved + f32(step) * del_ext), computes the ambiguity
 // penalty as (ambiguity * f32(popcount - 1)) / 3 and sums the diagonals in
-// x order.  The int path holds int16 state in int32 registers and clamps
-// every sum to INF16 exactly where the reference clamps it.
+// x order.  The int path clamps every sum to INF16 exactly where the
+// reference clamps it, with its int16 state in int32 registers (block
+// kernels) or two to a 32-bit register (warp kernel; no sum leaves int16,
+// see I16x2Ops).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -122,6 +129,131 @@ __global__ void banded_kernel(
   pick = pick < 0 ? 0 : (pick > band - 1 ? band - 1 : pick);
   if (k == pick) out[num_cands + b] = ops.diag(diag);
   if (diag_out != nullptr) diag_out[b * band + k] = ops.diag(diag);
+}
+
+// banded_i16 at bands 64 and 128 (band = 64 * P): one warp per candidate,
+// kCandsPerBlock candidates per block.  Thread t of a warp holds lanes
+// [2P t, 2P t + 2P) as P registers of two int16 (dp_core's warp-level
+// pieces): the insertion shift, the chain opening and the log2(band)
+// Kogge-Stone rounds are register shuffles inside the warp, and the sums
+// and mins are DPX instructions on both halves at once (I16x2Ops).  The x
+// loop has no barrier: each warp runs its own candidate's n steps.
+// Shared memory: the penalty of every (query code, window code) pair,
+// int16 [16 * 16], built once per block; per warp its query row [lq] and
+// window [lq + band], staged by the warp alone.  The prologue and epilogue
+// are banded_kernel's: the same gathers, reverse complement and clamps, the
+// same diagonal sums in x order (int32), the same capture and lane pick.
+// Other bands take banded_kernel<I16Ops> (the wrapper's dispatch).
+// What bounds it: the int16 operations of the DP cells (about 10 a cell with
+// DPX's fused add and min, two int16 a lane each clock); the block kernel lost
+// most of its time to one block barrier and shared-memory round trip per
+// exchange, 2 + log2(band) exchanges a step.  Staging the row and window in shared memory measured
+// 1.6x faster than reading them through the read-only path inside the x
+// loop (experiments/k1_staging.py, NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kCandsPerBlock = 4;
+constexpr int kPenTable = 16 * 16;
+
+// its dynamic shared memory (kernels.py checks the same sum)
+size_t i16_warp_smem(int64_t lq, int band) {
+  return kPenTable * sizeof(int16_t) + static_cast<size_t>(kCandsPerBlock * (2 * lq + band));
+}
+
+template <int P>
+__global__ void __launch_bounds__(32 * kCandsPerBlock) banded_i16_warp_kernel(
+    const uint8_t* __restrict__ reads, int64_t lq,
+    const uint8_t* __restrict__ concat, int64_t concat_len,
+    const int64_t* __restrict__ read_id, const uint8_t* __restrict__ reversed,
+    const int64_t* __restrict__ win_start, const int64_t* __restrict__ lane,
+    const int32_t* __restrict__ n_arr, const int32_t* __restrict__ m_arr,
+    int64_t num_cands, I16Ops ops, float* __restrict__ out, float* __restrict__ diag_out) {
+  constexpr int kBand = 64 * P;
+  constexpr int kLanes = 2 * P;  // lanes a thread holds
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* const pen_tab = reinterpret_cast<int16_t*>(smem);
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  uint8_t* const s_q =
+      smem + kPenTable * sizeof(int16_t) + static_cast<int64_t>(warp) * (2 * lq + kBand);
+  uint8_t* const s_w = s_q + lq;
+
+  for (int i = threadIdx.x; i < kPenTable; i += blockDim.x) {
+    pen_tab[i] = static_cast<int16_t>(ops.pen(i >> 4, i & 15));
+  }
+  __syncthreads();  // the table is the block's; from here on each warp works alone
+
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kCandsPerBlock + warp;
+  if (b >= num_cands) return;
+  const int n = n_arr[b];
+  const int m = m_arr[b];
+  const bool rev = reversed[b] != 0;
+  const int64_t ws = win_start[b];
+  const uint8_t* row = reads + read_id[b] * lq;
+
+  // codes are 4-bit (basepairs); the mask only keeps the table lookup in bounds
+  for (int64_t x = t; x < lq; x += 32) {
+    int c = __ldg(row + x);
+    if (rev) {
+      int64_t src = static_cast<int64_t>(n) - 1 - x;
+      src = src < 0 ? 0 : (src > lq - 1 ? lq - 1 : src);
+      const int f = __ldg(row + src);
+      const int comp = ((f & 1) << 3) | ((f & 2) << 1) | ((f & 4) >> 1) | ((f & 8) >> 3);
+      c = x < n ? comp : 0;
+    }
+    s_q[x] = static_cast<uint8_t>(c & 15);
+  }
+  for (int64_t j = t; j < lq + kBand; j += 32) {
+    int64_t idx = ws + j;
+    idx = idx < 0 ? 0 : (idx > concat_len - 1 ? concat_len - 1 : idx);
+    s_w[j] = static_cast<uint8_t>(__ldg(concat + idx) & 15);
+  }
+  __syncwarp();
+
+  const I16x2Ops ops2 = I16x2Ops::of(ops);
+  const int nx = n < lq ? n : static_cast<int>(lq);
+  const int k0 = kLanes * t;  // the thread's first lane
+  uint32_t best[P], ins[P];
+  int diag[kLanes];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    best[p] = pack2(k0 + 2 * p <= m ? 0 : kInf16, k0 + 2 * p + 1 <= m ? 0 : kInf16);
+    ins[p] = ops2.inf();
+  }
+#pragma unroll
+  for (int i = 0; i < kLanes; ++i) diag[i] = 0;
+
+  for (int x = 0; x < nx; ++x) {
+    const int q16 = s_q[x] << 4;
+    const uint8_t* const wx = s_w + x + k0;
+    int pen[kLanes];
+#pragma unroll
+    for (int i = 0; i < kLanes; ++i) {
+      pen[i] = pen_tab[q16 | wx[i]];
+      diag[i] += pen[i];
+    }
+    const int lim = m - x - k0;  // lane k0 + i has a window cell (x + k < m) iff i < lim
+    uint32_t pen2[P], live[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      pen2[p] = pack2(pen[2 * p], pen[2 * p + 1]);
+      live[p] = mask2(2 * p < lim, 2 * p + 1 < lim);
+    }
+    dp_step_w(ops2, pen2, live, best, ins, t);
+  }
+
+  int fin = kInf16;
+#pragma unroll
+  for (int i = 0; i < kLanes; ++i) {
+    fin = vmin(fin, final_lane(ops, n, lq, k0 + i, m, half16(best[i / 2], i % 2)));
+  }
+  const int r = warp_min(fin);
+  if (t == 0) out[b] = ops.score(r);
+  int64_t pick = lane[b];
+  pick = pick < 0 ? 0 : (pick > kBand - 1 ? kBand - 1 : pick);
+  if (pick >= k0 && pick < k0 + kLanes) out[num_cands + b] = ops.diag(diag[pick - k0]);
+  if (diag_out != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kLanes; ++i) diag_out[b * kBand + k0 + i] = ops.diag(diag[i]);
+  }
 }
 
 // banded_i16_packed: two band-64 candidates per block of 128 threads.
@@ -288,9 +420,27 @@ extern "C" int mapper_banded_i16(
     int mutation, int amb_unit, int ins_open, int ins_ext, int del_open, int del_ext,
     float inv, float* out, float* diag_out, void* stream) {
   I16Ops ops{mutation, amb_unit, ins_open, ins_ext, del_open, del_ext, inv};
-  return launch(reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m,
-                num_cands, band, ops, out, diag_out, stream);
+  if (band != 64 && band != 128) {
+    return launch(reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m,
+                  num_cands, band, ops, out, diag_out, stream);
+  }
+  if (num_cands > 0) {
+    const size_t smem = i16_warp_smem(lq, band);
+    const auto grid = static_cast<unsigned>((num_cands + kCandsPerBlock - 1) / kCandsPerBlock);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (band == 64) {
+      banded_i16_warp_kernel<1><<<grid, 32 * kCandsPerBlock, smem, s>>>(
+          reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m, num_cands,
+          ops, out, diag_out);
+    } else {
+      banded_i16_warp_kernel<2><<<grid, 32 * kCandsPerBlock, smem, s>>>(
+          reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m, num_cands,
+          ops, out, diag_out);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
+
 
 extern "C" int mapper_banded_f32(
     const uint8_t* reads, int64_t lq, const uint8_t* concat, int64_t concat_len,

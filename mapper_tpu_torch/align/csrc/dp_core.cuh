@@ -10,10 +10,13 @@
 //             with the probes' own constants; its min is the plain min, or
 //             the arithmetic min b + (d & (d >> 15)) of benchmarks/probe_i16/d.py.
 //
-// Exchanges between lanes go through two ping-pong shared-memory buffers
-// (buffer p is bufs + p * slots), one barrier per exchange.  `t` is the
-// thread's slot, `sub` its lane within its candidate's `width` lanes, so no
-// shift or Kogge-Stone step crosses into another candidate.
+// Two sets of pieces run that step.  The block-level ones (K2-K5, and K1 at
+// bands other than 64 and 128) hold one lane a thread and exchange through
+// two ping-pong shared-memory buffers (buffer p is bufs + p * slots), one
+// barrier per exchange: `t` is the thread's slot, `sub` its lane within its
+// candidate's `width` lanes, so no shift or Kogge-Stone step crosses into
+// another candidate.  The warp-level ones (K1 at bands 64 and 128, and the
+// probes' row bodies) are below, after final_lane.
 
 #pragma once
 
@@ -183,5 +186,199 @@ __device__ __forceinline__ typename Ops::T final_lane(const Ops& ops, int n, int
                                                       int m, typename Ops::T best) {
   return n >= 1 && n <= lq && n + sub <= m ? best : ops.inf();
 }
+
+// ---------------------------------------------------------------------------
+// Warp-level pieces.  One warp holds one band of 64 * P lanes: thread t holds
+// lanes [2P t, 2P t + 2P) in P registers of two int16 each (s16x2: lane
+// 2(P t + p) in the low half of register p, the next lane in its high half).
+// Every exchange is a register shuffle inside the warp plus in-thread moves,
+// so no piece has a barrier.  The order of the operations, the Kogge-Stone
+// strides and the clamps are those of the block-level pieces above.
+//
+// A packed Ops struct fixes the arithmetic on s16x2 registers:
+//   I16x2Ops       the scorers' int16 units with Hopper's DPX instruction
+//                  __viaddmin_s16x2 (min(a + b, c) per half, one
+//                  instruction) and the SIMD min __vmins2.  Exact because
+//                  no sum leaves int16: the
+//                  quantizer (banded._quantize_params, after
+//                  mapper_tpu/align/pallas_dp.py:200) takes a scale only when
+//                  INF16 + band * (largest unit) < 2^15 - 1, every state is
+//                  in [0, INF16] and every unit in [0, 255];
+//   ProbeOps2<A>   the probes' int16 arithmetic that wraps modulo 2^16, per
+//                  half (__vadd2 wraps); with A, the arithmetic min of
+//                  ProbeOps<true>, half by half.
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t pack2(int lo, int hi) {
+  return static_cast<uint32_t>(static_cast<uint16_t>(lo)) |
+         (static_cast<uint32_t>(static_cast<uint16_t>(hi)) << 16);
+}
+__device__ __forceinline__ int lo16(uint32_t v) { return static_cast<int16_t>(v & 0xffffu); }
+__device__ __forceinline__ int hi16(uint32_t v) { return static_cast<int16_t>(v >> 16); }
+__device__ __forceinline__ int half16(uint32_t v, int h) { return h ? hi16(v) : lo16(v); }
+__device__ __forceinline__ uint32_t splat2(int v) { return pack2(v, v); }
+// per-half masks and select: a's half where the mask's half is set, else b's
+__device__ __forceinline__ uint32_t mask2(bool lo, bool hi) {
+  return (lo ? 0x0000ffffu : 0u) | (hi ? 0xffff0000u : 0u);
+}
+__device__ __forceinline__ uint32_t select2(uint32_t mask, uint32_t a, uint32_t b) {
+  return (a & mask) | (b & ~mask);
+}
+
+struct I16x2Ops {
+  uint32_t ins_open, ins_ext, del_open;  // each unit in both halves
+  int del_ext;
+
+  static __device__ __forceinline__ I16x2Ops of(const I16Ops& s) {
+    return {splat2(s.ins_open), splat2(s.ins_ext), splat2(s.del_open), s.del_ext};
+  }
+  __device__ __forceinline__ uint32_t del_open2() const { return del_open; }
+  __device__ __forceinline__ uint32_t inf() const { return splat2(kInf16); }
+  __device__ __forceinline__ uint32_t min(uint32_t a, uint32_t b) const {
+    return __vmins2(a, b);
+  }
+  // sat(a + b)
+  __device__ __forceinline__ uint32_t add_sat(uint32_t a, uint32_t b) const {
+    return __viaddmin_s16x2(a, b, inf());
+  }
+  // sat(min(ins + ins_ext, best + ins_open))
+  __device__ __forceinline__ uint32_t ins_cand(uint32_t best, uint32_t ins) const {
+    return __viaddmin_s16x2(best, ins_open, __viaddmin_s16x2(ins, ins_ext, inf()));
+  }
+  // min(chain, sat(moved + ext))
+  __device__ __forceinline__ uint32_t chain_ext(uint32_t chain, uint32_t moved, uint32_t ext) const {
+    return __vmins2(chain, __viaddmin_s16x2(moved, ext, inf()));
+  }
+  __device__ __forceinline__ uint32_t step_ext(int step) const { return splat2(step * del_ext); }
+};
+
+template <bool kArithMin>
+struct ProbeOps2 {
+  ProbeOps<kArithMin> s;
+
+  __device__ __forceinline__ uint32_t inf() const { return splat2(kInf16); }
+  __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) const { return __vadd2(a, b); }
+  __device__ __forceinline__ uint32_t min(uint32_t a, uint32_t b) const {
+    if constexpr (kArithMin) {
+      // b + (d & (d >> 15)) with d = a - b, both halves at once: the two
+      // sign bits shifted to bits 0 and 16 and widened to half masks
+      const uint32_t d = __vsub2(a, b);
+      return __vadd2(b, d & (((d >> 15) & 0x00010001u) * 0xffffu));
+    } else {
+      return __vmins2(a, b);
+    }
+  }
+  __device__ __forceinline__ uint32_t add_sat(uint32_t a, uint32_t b) const {
+    return min(add(a, b), inf());
+  }
+  __device__ __forceinline__ uint32_t ins_cand(uint32_t best, uint32_t ins) const {
+    return min(min(add(ins, splat2(s.ins_ext)), add(best, splat2(s.ins_open))), inf());
+  }
+  __device__ __forceinline__ uint32_t chain_ext(uint32_t chain, uint32_t moved, uint32_t ext) const {
+    return min(chain, min(add(moved, ext), inf()));
+  }
+  __device__ __forceinline__ uint32_t step_ext(int step) const { return splat2(s.step_ext(step)); }
+  __device__ __forceinline__ uint32_t del_open2() const { return splat2(s.del_open); }
+};
+
+// Lane k takes lane k - S, `fill` below lane 0 (S = 1, or S even).  `t` is
+// the thread's lane in the warp.
+template <int S, int P>
+__device__ __forceinline__ void warp_shift_up(const uint32_t (&v)[P], uint32_t (&out)[P],
+                                              uint32_t fill, int t) {
+  if constexpr (S == 1) {
+    uint32_t carry = __shfl_up_sync(kFullMask, v[P - 1], 1);
+    if (t == 0) carry = fill;
+#pragma unroll
+    for (int p = 0; p < P; ++p) out[p] = __byte_perm(p > 0 ? v[p - 1] : carry, v[p], 0x5432);
+  } else {
+    static_assert(S % 2 == 0, "a shift of more than one lane moves whole registers");
+    constexpr int kRegs = S / 2, kThreads = kRegs / P, kRest = kRegs % P;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int dist = p >= kRest ? kThreads : kThreads + 1;
+      const uint32_t src = p >= kRest ? v[p - kRest] : v[p - kRest + P];
+      const uint32_t got = dist == 0 ? src : __shfl_up_sync(kFullMask, src, dist);
+      out[p] = t >= dist ? got : fill;
+    }
+  }
+}
+
+// Lane k takes lane k + 1, `fill` in the top lane.
+template <int P>
+__device__ __forceinline__ void warp_shift_down1(const uint32_t (&v)[P], uint32_t (&out)[P],
+                                                 uint32_t fill, int t) {
+  uint32_t carry = __shfl_down_sync(kFullMask, v[0], 1);
+  if (t == 31) carry = fill;
+#pragma unroll
+  for (int p = 0; p < P; ++p) out[p] = __byte_perm(v[p], p + 1 < P ? v[p + 1] : carry, 0x5432);
+}
+
+// dp_diag: live ? sat(best + pen) : inf, `live` a per-half mask.
+template <class Ops, int P>
+__device__ __forceinline__ void dp_diag_w(const Ops& ops, const uint32_t (&best)[P],
+                                          const uint32_t (&pen)[P], const uint32_t (&live)[P],
+                                          uint32_t (&out)[P]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) out[p] = select2(live[p], ops.add_sat(best[p], pen[p]), ops.inf());
+}
+
+// dp_ins_shift of an active row.
+template <class Ops, int P>
+__device__ __forceinline__ void dp_ins_shift_w(const Ops& ops, const uint32_t (&best)[P],
+                                               const uint32_t (&ins)[P], uint32_t (&out)[P],
+                                               int t) {
+  uint32_t cand[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) cand[p] = ops.ins_cand(best[p], ins[p]);
+  warp_shift_down1<P>(cand, out, ops.inf(), t);
+}
+
+// dp_chain_open.
+template <class Ops, int P>
+__device__ __forceinline__ void dp_chain_open_w(const Ops& ops, const uint32_t (&best_after)[P],
+                                                uint32_t (&out)[P], int t) {
+  warp_shift_up<1, P>(best_after, out, ops.inf(), t);
+#pragma unroll
+  for (int p = 0; p < P; ++p) out[p] = ops.add_sat(out[p], ops.del_open2());
+}
+
+// dp_ks_scan: the rounds at strides S, 2S, ... below the band.
+template <class Ops, int P, int S = 1>
+__device__ __forceinline__ void dp_ks_scan_w(const Ops& ops, uint32_t (&chain)[P], int t) {
+  if constexpr (S < 64 * P) {
+    uint32_t moved[P];
+    warp_shift_up<S, P>(chain, moved, ops.inf(), t);
+    const uint32_t ext = ops.step_ext(S);
+#pragma unroll
+    for (int p = 0; p < P; ++p) chain[p] = ops.chain_ext(chain[p], moved[p], ext);
+    dp_ks_scan_w<Ops, P, 2 * S>(ops, chain, t);
+  }
+}
+
+// dp_step of an active row: `live` is the per-half mask of w_valid.
+template <class Ops, int P>
+__device__ __forceinline__ void dp_step_w(const Ops& ops, const uint32_t (&pen)[P],
+                                          const uint32_t (&live)[P], uint32_t (&best)[P],
+                                          uint32_t (&ins)[P], int t) {
+  uint32_t diag_new[P], ins_new[P], best_after[P], chain[P];
+  dp_diag_w(ops, best, pen, live, diag_new);
+  dp_ins_shift_w(ops, best, ins, ins_new, t);
+#pragma unroll
+  for (int p = 0; p < P; ++p) best_after[p] = ops.min(diag_new[p], ins_new[p]);
+  dp_chain_open_w(ops, best_after, chain, t);
+  dp_ks_scan_w(ops, chain, t);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    chain[p] = select2(live[p], chain[p], ops.inf());
+    best[p] = ops.min(best_after[p], chain[p]);
+    ins[p] = ins_new[p];
+  }
+}
+
+// The min over the warp's lanes of a value each thread has already reduced
+// over its own lanes (capture's warp-level counterpart).
+__device__ __forceinline__ int warp_min(int v) { return __reduce_min_sync(kFullMask, v); }
 
 }  // namespace dp

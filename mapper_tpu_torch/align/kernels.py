@@ -10,12 +10,13 @@ compiler's message.
 
 Three kinds of entry:
 - `banded_i16` and `banded_f32` score candidates against a reference held on
-  the device (reads, reference and per-candidate indices);
+  the device (reads, reference and per-candidate indices); `banded_i16`
+  runs one warp a candidate at bands 64 and 128, one block elsewhere;
 - `banded_i16_packed`, `banded_roll_f32` and `banded_chunk_f32` score
   host-built rows: query codes q [B, LQ] and windows w [B, LW >= LQ + band],
   uint8, with lengths n and m;
 - `probe_i16` runs one body of the int16 probe kernels (P1-P9) on an int16
-  [rows, lanes] block.
+  [rows, lanes] block, lanes 64, 128 or 256.
 
 Each wrapper checks its tensors, allocates its outputs with `torch.empty`,
 launches on the current CUDA stream, raises if the launch reported an error,
@@ -54,6 +55,9 @@ LAUNCHES = {
     **{f"probe_i16_{stage}": 0 for stage in PROBE_STAGES},
 }
 PACKED_BAND = 64  # banded_i16_packed's per-candidate band (kHalf in the source)
+WARP_BANDS = (64, 128)  # bands banded_i16 runs one warp per candidate at
+_CANDS_PER_BLOCK = 4  # banded_i16's candidates a block at WARP_BANDS (kCandsPerBlock)
+PROBE_LANES = (64, 128, 256)  # the lane counts the probe kernel takes
 _SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block takes without opting in
 
 _LOCK = threading.Lock()
@@ -83,9 +87,9 @@ def find_nvcc() -> str | None:
     return None
 
 
-def sources() -> list[Path]:
-    """The `.cu` files the library is compiled from."""
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path | None = None) -> list[Path]:
+    """The `.cu` files the library is compiled from (`csrc`, default CSRC)."""
+    return sorted((csrc or CSRC).glob("*.cu"))
 
 
 def _check_nvcc(cmd, returncode, stderr, what):
@@ -93,11 +97,11 @@ def _check_nvcc(cmd, returncode, stderr, what):
         raise RuntimeError(f"nvcc failed ({returncode}) {what}:\n{' '.join(cmd)}\n{stderr}")
 
 
-def compile_library(target: Path) -> None:
-    """Compile every source into the shared library `target` (written
-    atomically): one nvcc per source, all started together, then one link
-    (2.9-3.3 s on an H100 host, against 5.1-5.3 s for one `nvcc -shared`
-    over every source).  Raises RuntimeError when nvcc is missing or fails."""
+def compile_library(target: Path, csrc: Path | None = None) -> None:
+    """Compile every source of `csrc` (default CSRC) into the shared library
+    `target` (written atomically): one nvcc per source, all started together,
+    then one link (2.9-3.3 s on an H100 host, against 5.1-5.3 s for one
+    `nvcc -shared` over every source).  Raises RuntimeError when nvcc is missing or fails."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -107,7 +111,7 @@ def compile_library(target: Path) -> None:
     target.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
         jobs = []
-        for src in sources():
+        for src in sources(csrc):
             obj = str(Path(tmp) / f"{src.stem}.o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -123,25 +127,27 @@ def compile_library(target: Path) -> None:
         os.replace(lib, target)
 
 
-def library_path(build_dir: Path | None = None) -> Path:
-    """The library's path, keyed by every file of `csrc/` (sources and the
-    headers they include) and by the compiler flags."""
+def library_path(build_dir: Path | None = None, csrc: Path | None = None) -> Path:
+    """The library's path, keyed by every file of `csrc` (default CSRC: the
+    sources and the headers they include) and by the compiler flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
+    for path in sorted((csrc or CSRC).glob("*.cu*")):
         digest.update(f"\0{path.name}\0".encode() + path.read_bytes())
     return (build_dir or BUILD_DIR) / f"kernels_{digest.hexdigest()[:16]}.so"
 
 
-def library(build_dir: Path | None = None):
+def library(build_dir: Path | None = None, csrc: Path | None = None):
     """The loaded kernel library, built first if this source's build is
-    missing.  Thread-safe; the first caller pays the build."""
+    missing; from another source directory `csrc` (a variant an experiment
+    builds) when one is given.  Thread-safe; the first caller pays the build."""
     global _LIB
+    shared = build_dir is None and csrc is None
     with _LOCK:
-        if _LIB is not None and build_dir is None:
+        if _LIB is not None and shared:
             return _LIB
-        path = library_path(build_dir)
+        path = library_path(build_dir, csrc)
         if not path.exists():
-            compile_library(path)
+            compile_library(path, csrc)
         lib = ctypes.CDLL(str(path))
         signatures = {
             "mapper_banded_i16": _COMMON_ARGS + [_INT] * 6 + [_F32, _P, _P, _P],
@@ -155,7 +161,7 @@ def library(build_dir: Path | None = None):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = _INT
-        if build_dir is None:
+        if shared:
             _LIB = lib
         return lib
 
@@ -243,10 +249,14 @@ def banded_i16(
 ):
     """K1: int16-unit banded DP (`ints` from `_quantize_params`, `inv` =
     f32(1) / f32(scale)).  Returns [2, B] float32 on the reads' device; a
-    float32 [B, band] `diag_out` also receives every diagonal's sum."""
+    float32 [B, band] `diag_out` also receives every diagonal's sum.  At
+    bands 64 and 128 (`WARP_BANDS`) one warp scores a candidate; any other
+    band takes the block kernel K2 also runs, one block a candidate."""
     out, stream, common = _prepare(
         reads, concat, read_id, reversed_, win_start, lane, n, m, band, diag_out
     )
+    if band in WARP_BANDS:  # the penalty table, then each warp's row and window
+        _check_smem(2 * 256 + _CANDS_PER_BLOCK * (2 * reads.shape[1] + band), reads.shape[1])
     if out.shape[1] == 0:
         return out
     lib = library()
@@ -362,17 +372,19 @@ def banded_chunk_f32(q, w, n, m, params6, band: int, chunk: int):
 
 def probe_i16(stage: str, body: int, x, reduces: bool):
     """P1-P9: body number `body` of probe stage `stage` (a ... i, bodies in
-    the probe's order) on x [rows, lanes] int16, lanes <= 1024.  Returns
-    int16 [rows, 1] for a body that reduces each row (`reduces`), else
-    [rows, lanes]."""
+    the probe's order) on x [rows, lanes] int16, lanes one of `PROBE_LANES`,
+    16-byte aligned.  Returns int16 [rows, 1] for a body that reduces each
+    row (`reduces`), else [rows, lanes]."""
     device = _cuda_device(x)
     _check("x", x, torch.int16, 2, device)
     if len(stage) != 1 or stage not in PROBE_STAGES:
         raise ValueError(f"probe stage {stage!r} not one of {PROBE_STAGES}")
     rows, lanes = x.shape
-    if not 1 <= lanes <= 1024:
-        raise ValueError(f"{lanes} lanes outside [1, 1024]")
-    if rows >= 2**31:
+    if lanes not in PROBE_LANES:
+        raise ValueError(f"{lanes} lanes: the probe kernel takes {PROBE_LANES}")
+    if x.data_ptr() % 16:
+        raise ValueError("x: not 16-byte aligned")
+    if rows >= 2**28:
         raise ValueError(f"{rows} rows exceed one launch")
     out_cols = 1 if reduces else lanes
     out = torch.empty((rows, out_cols), dtype=torch.int16, device=device)

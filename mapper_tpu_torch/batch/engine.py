@@ -20,9 +20,10 @@ Pipeline (single-end fast path):
    are finalized by the exact native DP; everything else falls back to the
    exact sequential worker (align/worker.py), the output-parity reference.
 
-The host stages are the JAX package's own code, copied unchanged; only the
-device sites differ.  `MAPPER_TPU_HOST_SCORING=1` scores short reads with the
-native exact DP on the host instead of the kernel.
+The host stages and the modules they call are the port's own copies of the
+JAX package's code; only the device sites differ.
+`MAPPER_TPU_HOST_SCORING=1` scores short reads with the native exact DP on
+the host instead of the kernel.
 """
 
 from __future__ import annotations
@@ -34,22 +35,22 @@ import time
 import numpy as np
 import torch
 
-from mapper_tpu import basepairs
-from mapper_tpu.align.blocks import (
+from mapper_tpu_torch import basepairs
+from mapper_tpu_torch.align.blocks import (
     AlignedBlock,
     QueryAlignment,
     QueryAlignments,
     new_sequence_alignment,
 )
-from mapper_tpu.align.query import Query
-from mapper_tpu.align.worker import AlignerWorker
-from mapper_tpu.batch.candidates import (
+from mapper_tpu_torch.align.query import Query
+from mapper_tpu_torch.align.worker import AlignerWorker
+from mapper_tpu_torch.batch.candidates import (
     CandidateTable,
     ReadBatch,
     _ranges,
     generate_candidates,
 )
-from mapper_tpu.sequence import Sequence
+from mapper_tpu_torch.sequence import Sequence
 from mapper_tpu_torch.align.banded import banded_scores_gathered
 
 EPS = 1e-3
@@ -150,7 +151,7 @@ class BatchAligner:
             if cached is not None and cached.get_num_components() == 1:
                 stats.num_cache_hits += 1
                 new_component = [
-                    _replay(option, q.get_sequences())
+                    option.with_query(q.get_sequences())
                     for option in cached.get_first_alignments()
                 ]
                 results[i] = QueryAlignments.single_component(
@@ -724,7 +725,7 @@ class BatchAligner:
         todo = None
         snp = self.parameters.mutation_penalty
         if float(snp).is_integer() and os.environ.get("MAPPER_TPU_NATIVE", "1") != "0":
-            from mapper_tpu import native
+            from mapper_tpu_torch import native
 
             out = native.native_ungapped_counts(
                 codes_concat, read_starts, read_id, reversed_rows, diag_start,
@@ -830,7 +831,7 @@ class BatchAligner:
         reversed_flag = seq_a.complemented_from is not None
         if penalty is None:
             return new_sequence_alignment([block], reversed_flag, self.parameters)
-        from mapper_tpu.align.blocks import SequenceAlignment
+        from mapper_tpu_torch.align.blocks import SequenceAlignment
 
         return SequenceAlignment([block], reversed_flag, penalty, penalty)
 
@@ -849,7 +850,7 @@ class BatchAligner:
             or os.environ.get("MAPPER_TPU_NATIVE_PAIR", "1") == "0"
         ):
             return deferred
-        from mapper_tpu.native import native_pair_driver_batch
+        from mapper_tpu_torch.native import native_pair_driver_batch
 
         p = self.parameters
         pair_of = combos["pair"]
@@ -917,7 +918,7 @@ class BatchAligner:
         if out is None:
             return deferred
 
-        from mapper_tpu.align.blocks import SequenceAlignment
+        from mapper_tpu_torch.align.blocks import SequenceAlignment
 
         leftover = []
         maxc = out["max_choices"]
@@ -1002,8 +1003,8 @@ class BatchAligner:
         """Exact per-pair path over this pair's combos (discovery order):
         the full QueryMatch_Aligner algebra — overlap join/split, duplication
         bonus, budget re-allocation — on the batch-voted candidate set."""
-        from mapper_tpu.align.candidates import QueryMatch, SequenceMatch
-        from mapper_tpu.align.query_aligner import QueryMatchAligner
+        from mapper_tpu_torch.align.candidates import QueryMatch, SequenceMatch
+        from mapper_tpu_torch.align.query_aligner import QueryMatchAligner
 
         p = self.parameters
         pair_of = combos["pair"]
@@ -1103,7 +1104,7 @@ class BatchAligner:
             def combo_inner(c: int, overrides) -> int:
                 # QueryMatch.get_total_distance_between_components for combo c
                 # with the probe's offset overrides applied
-                from mapper_tpu.align.candidates import _INT_MAX
+                from mapper_tpu_torch.align.candidates import _INT_MAX
 
                 ends = []
                 refs = []
@@ -1430,7 +1431,7 @@ class BatchAligner:
         straight rows reproduce the exact ungapped penalty bit-for-bit
         (same -ffp-contract=off sums as numpy), so the banded==ungapped
         clean-emission test behaves identically."""
-        from mapper_tpu.native import get_library, native_local_align_batch
+        from mapper_tpu_torch.native import get_library, native_local_align_batch
 
         if get_library() is None:
             return None
@@ -1611,7 +1612,7 @@ class BatchAligner:
         import os as _os
 
         if _os.environ.get("MAPPER_TPU_NATIVE", "1") != "0":
-            from mapper_tpu.native import get_library
+            from mapper_tpu_torch.native import get_library
 
             if get_library() is not None:
                 self._finalize_gap_jobs_native(jobs, results, best_per_read, gap_margin)
@@ -1622,8 +1623,8 @@ class BatchAligner:
     def _finalize_one_gap_job_python(self, job, results, best_per_read, gap_margin):
         """The per-read sequential-driver finalization (semantic oracle for
         the batched native route below)."""
-        from mapper_tpu.align.candidates import QueryMatch, SequenceMatch
-        from mapper_tpu.align.query_aligner import QueryMatchAligner
+        from mapper_tpu_torch.align.candidates import QueryMatch, SequenceMatch
+        from mapper_tpu_torch.align.query_aligner import QueryMatchAligner
 
         p = self.parameters
         r = job["r"]
@@ -1661,7 +1662,7 @@ class BatchAligner:
         """One batched native local_align call.  wave: list of
         (seq_a, ref, o, rate) tuples.  Returns (status, nblocks, blocks,
         total, aligned, r_starts) or None when the library bails."""
-        from mapper_tpu.native import native_local_align_batch
+        from mapper_tpu_torch.native import native_local_align_batch
 
         p = self.parameters
         k = len(wave)
@@ -1862,7 +1863,7 @@ class BatchAligner:
                         if self._gap_debug is not None:
                             self._gap_debug["probe_blocks"] += 1
 
-        from mapper_tpu.align.blocks import SequenceAlignment
+        from mapper_tpu_torch.align.blocks import SequenceAlignment
 
         for job in survivors:
             if not job["ok"]:
@@ -1886,7 +1887,7 @@ class BatchAligner:
         the eager emission loop built; rows were pre-checked in-contig and
         gated non-ancestral (the ancestral path materializes eagerly via
         _make_ungapped_component)."""
-        from mapper_tpu.align.blocks import SequenceAlignment
+        from mapper_tpu_torch.align.blocks import SequenceAlignment
 
         n = len(seq)
         choices = []
@@ -2154,7 +2155,7 @@ class BatchAligner:
         # the CLI only attaches a DevicePileup when the run has no
         # ancestral->original rewrite, so presence alone gates the path
         take_device_pileup = self.device_pileup is not None
-        from mapper_tpu.align.blocks import LazyUngappedAlignments
+        from mapper_tpu_torch.align.blocks import LazyUngappedAlignments
 
         # vectorized in-contig recheck for all emitted rows (the per-row
         # branch cost more than the loop body), plus cached per-contig
@@ -2280,28 +2281,8 @@ class BatchAligner:
         return results
 
 
-def _replay(option: QueryAlignment, sequences: list[Sequence]) -> QueryAlignment:
-    """A cached alignment on a new query of the same content.  Each component
-    keeps its strand: one aligned as the read's reverse complement gets the
-    new read's reverse complement.  (`QueryAlignment.with_query` gives every
-    component the forward read, so a reverse-strand hit would print its SEQ
-    uncomplemented and add the wrong alleles to the pileup.)"""
-    components = [
-        c.with_sequence_a(
-            sequences[i].reverse_complement()
-            if c.get_sequence_a().complemented_from is not None
-            else sequences[i]
-        )
-        for i, c in enumerate(option.get_components())
-    ]
-    return QueryAlignment(
-        components, option.spacing_penalty, option.overlap_multiplier,
-        option.duplication_bonus, option.total_penalty, option.inner_distance,
-    )
-
-
 def _tables(database):
-    from mapper_tpu.batch.candidates import _strand_tables
+    from mapper_tpu_torch.batch.candidates import _strand_tables
 
     return _strand_tables(database)
 

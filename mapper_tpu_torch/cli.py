@@ -11,7 +11,7 @@ asking for CUDA without a card exits with an error).  With
 `MAPPER_TPU_DEVICE_PILEUP=1` and `--out-vcf` or `--out-mutations` (and no
 `--infer-ancestors`), the clean ungapped alignments' pileup is accumulated
 on that device (`batch/device_pileup.py`).  Argument helpers, writers and
-detectors are the JAX package's own host code.
+detectors are the port's own copies of the JAX package's host code.
 """
 
 from __future__ import annotations
@@ -21,44 +21,75 @@ import sys
 import threading
 import time
 
-from mapper_tpu.align.cache import AlignmentCache
-from mapper_tpu.align.params import AlignmentParameters
-from mapper_tpu.align.worker import AlignerWorker
-from mapper_tpu.api import ReferenceIndex
-from mapper_tpu.cli import (
-    DEFAULT_EXPECTED_PAIR_DISTANCE,
-    DEFAULT_SPACING_DEVIATION,
-    _INT_MAX,
-    _parse_threshold_subflags,
-    usage_error,
-)
-from mapper_tpu.index.database import (
+from mapper_tpu_torch.align.cache import AlignmentCache
+from mapper_tpu_torch.align.params import AlignmentParameters
+from mapper_tpu_torch.align.worker import AlignerWorker
+from mapper_tpu_torch.api import ReferenceIndex
+from mapper_tpu_torch.index.database import (
     HashBlockDatabase,
     choose_max_duplication_length,
     choose_min_duplication_length,
 )
-from mapper_tpu.index.dircache import DirCache
-from mapper_tpu.index.duplication import DuplicationDetector
-from mapper_tpu.io import fastx
-from mapper_tpu.io.mutations import MutationDetectionParameters, MutationsWriter
-from mapper_tpu.io.refcounts import ReferenceAlignmentCounter, UnalignedQueryWriter
-from mapper_tpu.io.sam import SamWriter
-from mapper_tpu.io.vcf import VcfWriter
-from mapper_tpu.pileup import MatchDatabase
-from mapper_tpu.providers import (
+from mapper_tpu_torch.index.dircache import DirCache
+from mapper_tpu_torch.index.duplication import DuplicationDetector
+from mapper_tpu_torch.io import fastx
+from mapper_tpu_torch.io.mutations import MutationDetectionParameters, MutationsWriter
+from mapper_tpu_torch.io.refcounts import ReferenceAlignmentCounter, UnalignedQueryWriter
+from mapper_tpu_torch.io.sam import SamWriter
+from mapper_tpu_torch.io.vcf import VcfWriter
+from mapper_tpu_torch.pileup import MatchDatabase
+from mapper_tpu_torch.providers import (
     PairedEndQueryProvider,
     QueriesIterator,
     SimpleQueryProvider,
     SequenceSplitter,
 )
-from mapper_tpu.sequence import SequenceDatabase, sort_and_complement
-from mapper_tpu.stats import (
+from mapper_tpu_torch.sequence import SequenceDatabase, sort_and_complement
+from mapper_tpu_torch.stats import (
     AlignmentCounter,
     DisplayTable,
     IndelSummarizer,
     PenaltySummarizer,
     format_histogram_column,
 )
+
+
+DEFAULT_EXPECTED_PAIR_DISTANCE = 100
+DEFAULT_SPACING_DEVIATION = 50
+_INT_MAX = 2**31 - 1
+
+
+def usage_error(message: str) -> None:
+    print(message, file=sys.stderr)
+    sys.exit(1)
+
+
+def _parse_threshold_subflags(args: list[str], i: int, params: MutationDetectionParameters) -> int:
+    """The context-sensitive --snp-threshold family binding to the preceding
+    --out-vcf / --out-mutations (Mapper.java:149-239)."""
+    while i < len(args):
+        arg = args[i]
+        if arg == "--snp-threshold":
+            params.min_snp_total_depth = float(args[i + 1])
+            params.min_snp_depth_fraction = float(args[i + 2])
+            i += 3
+        elif arg == "--indel-start-threshold":
+            params.min_indel_total_start_depth = float(args[i + 1])
+            params.min_indel_start_depth_fraction = float(args[i + 2])
+            i += 3
+        elif arg == "--indel-continue-threshold":
+            params.min_indel_continuation_total_depth = float(args[i + 1])
+            params.min_indel_continuation_depth_fraction = float(args[i + 2])
+            i += 3
+        elif arg == "--indel-threshold":
+            params.min_indel_total_start_depth = float(args[i + 1])
+            params.min_indel_continuation_total_depth = float(args[i + 1])
+            params.min_indel_start_depth_fraction = float(args[i + 2])
+            params.min_indel_continuation_depth_fraction = float(args[i + 2])
+            i += 3
+        else:
+            break
+    return i
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -363,7 +394,7 @@ def run(
     reference_verbosity=0,
     auto_verbose=False,
 ) -> int:
-    from mapper_tpu.logging import BufferedWriter, Logger, StderrWriter
+    from mapper_tpu_torch.logging import BufferedWriter, Logger, StderrWriter
 
     log = lambda message: print(message, file=sys.stderr)
     stderr_writer = StderrWriter()
@@ -399,7 +430,7 @@ def run(
     max_dup = choose_max_duplication_length(sequence_database)
 
     if guess_reference_ancestors:
-        from mapper_tpu.index.ancestry import AncestryDetector
+        from mapper_tpu_torch.index.ancestry import AncestryDetector
 
         original_db = HashBlockDatabase(
             sequence_database,

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from mapper_tpu import basepairs
+from mapper_tpu_torch import basepairs
 
 _CODES = np.array([1, 2, 4, 8], dtype=np.uint8)
 

@@ -2,8 +2,11 @@
 against the JAX package's (`mapper_tpu.align.pallas_dp`), on the same numpy
 inputs: the f32 reference scorer, the gathered scorer in Pallas interpret
 mode (int16 exact, f32 within the reference kernel test's 1e-5), the
-fixed-point quantizer and int16 saturation."""
+fixed-point quantizer and int16 saturation.  Each side takes its own
+package's AlignmentParameters: the port's are carried across from the JAX
+package's fields (`convert.parameters_from_reference`)."""
 
+import dataclasses
 import math
 
 import jax
@@ -15,10 +18,16 @@ from mapper_tpu import basepairs
 from mapper_tpu.align import pallas_dp
 from mapper_tpu.align.dp import _forward_dp
 from mapper_tpu.align.params import AlignmentParameters
+from mapper_tpu_torch import convert
 from mapper_tpu_torch.align import banded
 from mapper_tpu_torch.simulate import scoring_candidates
 
 _KEYS = ("reads", "concat", "read_id", "reversed_", "win_start", "lane", "n", "m")
+
+
+def _port(params):
+    """The port's parameters with the JAX package's values."""
+    return convert.parameters_from_reference(dataclasses.asdict(params))
 
 
 def random_pair(rng, n, shift, num_snps=0, indel=0):
@@ -64,7 +73,7 @@ def test_reference_matches_jax_reference_and_host_dp(seed):
     params = AlignmentParameters.defaults(max_error_rate=1.0)
     lq, shift, band = 48, 8, 32
     q, w, n, m = pair_batch(rng, 8, lq, shift, band)
-    got = banded.banded_scores_reference(q, w, n, m, params, band).numpy()
+    got = banded.banded_scores_reference(q, w, n, m, _port(params), band).numpy()
     want = np.asarray(pallas_dp.banded_scores_reference(q, w, n, m, params, band))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     for i in range(8):
@@ -82,7 +91,7 @@ def test_reference_matches_pallas_interpret():
             q, w, n, m, params, band=band, tile=4, use_pallas=True, interpret=True, chunk=16
         )
     )
-    got = banded.banded_scores_reference(q, w, n, m, params, band).numpy()
+    got = banded.banded_scores_reference(q, w, n, m, _port(params), band).numpy()
     np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5)
 
 
@@ -90,7 +99,7 @@ def test_reference_matches_pallas_interpret():
 def test_perfect_and_snp_scores(num_snps, allowed):
     params = AlignmentParameters.defaults(max_error_rate=1.0)
     q, w = random_pair(np.random.default_rng(7 + num_snps), 40, 8, num_snps=num_snps)
-    got = banded.banded_scores_reference(q[None], w[None], [40], [w.shape[0]], params, 32)
+    got = banded.banded_scores_reference(q[None], w[None], [40], [w.shape[0]], _port(params), 32)
     want = pallas_dp.banded_scores_reference(q[None], w[None], [40], [w.shape[0]], params, 32)
     assert float(got[0]) == float(np.asarray(want)[0])
     assert any(float(got[0]) == pytest.approx(a, abs=1e-6) for a in allowed)
@@ -98,7 +107,7 @@ def test_perfect_and_snp_scores(num_snps, allowed):
 
 def _port_gathered(cands, params, band):
     args = [torch.as_tensor(cands[k]) for k in _KEYS]
-    return banded.banded_scores_gathered(*args, params, band).numpy()
+    return banded.banded_scores_gathered(*args, _port(params), band).numpy()
 
 
 def _port_gathered_f32(cands, params, band):
@@ -108,7 +117,7 @@ def _port_gathered_f32(cands, params, band):
         *[torch.as_tensor(cands[k]) for k in _KEYS]
     )
     q, w = banded._gather_codes(reads, concat, read_id, reversed_, win_start, n, band)
-    scores, diag = banded._pen_core(q, w, n, m, banded._params_tuple(params), band)
+    scores, diag = banded._pen_core(q, w, n, m, banded._params_tuple(_port(params)), band)
     ung = diag[torch.arange(read_id.shape[0]), torch.clamp(lane, 0, band - 1)]
     return torch.stack([scores, ung]).numpy()
 
@@ -151,7 +160,7 @@ def test_gathered_f32_by_quantizer_matches_pallas_interpret():
     """Parameters with no exact scale take the f32 path on both sides."""
     band, lq = 32, 64
     params = AlignmentParameters.defaults(mutation_penalty=math.pi)
-    assert banded._quantize_params(params, lq, band) is None
+    assert banded._quantize_params(_port(params), lq, band) is None
     cands = scoring_candidates(np.random.default_rng(5), 32, lq, band, ref_size=2000, num_reads=12)
     np.testing.assert_allclose(
         _port_gathered(cands, params, band), _jax_gathered(cands, params, band), rtol=0, atol=1e-5
@@ -173,22 +182,22 @@ def test_gathered_f32_by_quantizer_matches_pallas_interpret():
 )
 def test_quantize_params_matches_jax(kwargs, lq, band):
     params = AlignmentParameters.defaults(**kwargs)
-    assert banded._quantize_params(params, lq, band) == pallas_dp._quantize_params(
+    assert banded._quantize_params(_port(params), lq, band) == pallas_dp._quantize_params(
         params, lq, band
     )
-    assert banded._params_tuple(params) == pallas_dp._params_tuple(params)
+    assert banded._params_tuple(_port(params)) == pallas_dp._params_tuple(params)
 
 
 def test_int16_saturation_reports_big():
     params = AlignmentParameters.defaults(max_error_rate=1.0)
     band, lq = 16, 64
-    assert banded._quantize_params(params, 2048, band) is None
+    assert banded._quantize_params(_port(params), 2048, band) is None
     reads = torch.full((1, lq), 1, dtype=torch.uint8)  # all A
     concat = torch.full((lq + band,), 2, dtype=torch.uint8)  # all C
     zero = torch.zeros(1, dtype=torch.int64)
     out = banded.banded_scores_gathered(
         reads, concat, zero, torch.zeros(1, dtype=torch.bool), zero, zero,
-        torch.tensor([lq]), torch.tensor([lq + band]), params, band,
+        torch.tensor([lq]), torch.tensor([lq + band]), _port(params), band,
     )
     want = np.asarray(
         pallas_dp.banded_scores(

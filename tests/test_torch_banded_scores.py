@@ -5,8 +5,10 @@ diagonal sums, "pen" f32 within the reference kernel test's 1e-5, band 64
 exact against the reference's packed mode for odd and even batches, "roll"
 and "chunk" within 1e-5, empty batches,
 and the "pen" rows exactly equal to the gathered scorer on the same
-candidates."""
+candidates.  The JAX side takes the JAX package's AlignmentParameters, the
+port's side the port's own, carried across by `convert`."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -15,7 +17,9 @@ import torch
 
 from mapper_tpu.align import pallas_dp
 from mapper_tpu.align.params import AlignmentParameters
+from mapper_tpu_torch import convert
 from mapper_tpu_torch.align import banded
+from mapper_tpu_torch.align.params import AlignmentParameters as PortParameters
 from mapper_tpu_torch.simulate import scoring_candidates
 
 _KEYS = ("reads", "concat", "read_id", "reversed_", "win_start", "lane", "n", "m")
@@ -47,9 +51,15 @@ def jax_scores(rows, params, band, **kwargs):
     return tuple(np.asarray(o) for o in out) if isinstance(out, tuple) else np.asarray(out)
 
 
+def _port(params):
+    """The port's parameters with the JAX package's values."""
+    return convert.parameters_from_reference(dataclasses.asdict(params))
+
+
 def port_scores(rows, params, band, **kwargs):
+    """`banded_scores` with the port's parameters of the JAX package's `params`."""
     out = banded.banded_scores(
-        *[torch.as_tensor(a) for a in rows], params, band=band, chunk=CHUNK, **kwargs
+        *[torch.as_tensor(a) for a in rows], _port(params), band=band, chunk=CHUNK, **kwargs
     )
     return tuple(o.numpy() for o in out) if isinstance(out, tuple) else out.numpy()
 
@@ -59,7 +69,7 @@ def test_pen_i16_matches_pallas_interpret(band, extra):
     """Width 40 pads to 48; windows are zero-padded (extra 0) or cut."""
     rows = host_rows(band, 16, 40, band, extra)
     params = AlignmentParameters.defaults()
-    assert banded._quantize_params(params, 48, band) is not None
+    assert banded._quantize_params(_port(params), 48, band) is not None
     got_s, got_d = port_scores(rows, params, band, return_diag_sums=True)
     want_s, want_d = jax_scores(rows, params, band, return_diag_sums=True)
     np.testing.assert_array_equal(got_s, want_s)
@@ -72,7 +82,7 @@ def test_pen_f32_matches_pallas_interpret():
     band = 16
     rows = host_rows(3, 16, 40, band)
     params = AlignmentParameters.defaults(mutation_penalty=math.pi)
-    assert banded._quantize_params(params, 48, band) is None
+    assert banded._quantize_params(_port(params), 48, band) is None
     got_s, got_d = port_scores(rows, params, band, return_diag_sums=True)
     want_s, want_d = jax_scores(rows, params, band, return_diag_sums=True)
     np.testing.assert_allclose(got_s, want_s, rtol=0, atol=1e-5)
@@ -133,7 +143,7 @@ def test_pen_rows_match_gathered_scorer(band):
     cands = _candidates(band + 1, 40, lq, band)
     args = banded._normalize(*[torch.as_tensor(cands[k]) for k in _KEYS])
     reads, concat, read_id, reversed_, win_start, lane, n, m = args
-    params = AlignmentParameters.defaults()
+    params = PortParameters.defaults()
     assert banded._quantize_params(params, lq, band) is not None
     gathered = banded.banded_scores_gathered(*args, params, band)
     q, w = banded._gather_codes(reads, concat, read_id, reversed_, win_start, n, band)
@@ -156,7 +166,7 @@ def test_quantizer_takes_the_padded_width(monkeypatch):
         return quantize(params, lq, band)
 
     monkeypatch.setattr(banded, "_quantize_params", spy)
-    params = AlignmentParameters.defaults()
+    params = PortParameters.defaults()
     banded.banded_scores(*host_rows(2, 4, 40, 16), params, band=16, chunk=CHUNK)
     assert widths == [48]
     assert quantize(params, 545, 16) is not None and quantize(params, 560, 16) is None
@@ -168,4 +178,4 @@ def test_banded_scores_has_no_other_device_branch():
     w = torch.zeros((2, 48), dtype=torch.uint8, device=meta)
     n = torch.zeros(2, dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        banded.banded_scores(q, w, n, n, AlignmentParameters.defaults(), band=32)
+        banded.banded_scores(q, w, n, n, PortParameters.defaults(), band=32)

@@ -14,18 +14,18 @@ import pytest
 import torch
 
 from benchmarks.simlib import random_reference, rc_text, write_reference
+import mapper_tpu.align.blocks
+import mapper_tpu.align.params
+import mapper_tpu.batch.candidates
+import mapper_tpu.pileup
+import mapper_tpu.sequence
+import mapper_tpu_torch.align.blocks
+import mapper_tpu_torch.align.params
+import mapper_tpu_torch.batch.candidates
+import mapper_tpu_torch.pileup
+import mapper_tpu_torch.sequence
 from mapper_tpu import cli as jax_cli
-from mapper_tpu.align.blocks import (
-    AlignedBlock,
-    QueryAlignment,
-    QueryAlignments,
-    new_sequence_alignment,
-)
-from mapper_tpu.align.params import AlignmentParameters
-from mapper_tpu.batch.candidates import ReadBatch
 from mapper_tpu.batch.device_pileup import DevicePileup as JaxDevicePileup
-from mapper_tpu.pileup import MatchDatabase
-from mapper_tpu.sequence import Sequence, SequenceDatabase, sort_and_complement
 from mapper_tpu_torch import cli as torch_cli
 from mapper_tpu_torch.batch import device_pileup
 from mapper_tpu_torch.batch.device_pileup import DevicePileup
@@ -34,17 +34,30 @@ from mapper_tpu_torch.simulate import simulate_reads, write_fastq
 QEF = 0.1
 
 
-@pytest.fixture(scope="module")
-def emissions():
+def _package(root):
+    """The host classes the emissions are built from, of one package."""
+    return SimpleNamespace(
+        blocks=root.align.blocks, params=root.align.params,
+        ReadBatch=root.batch.candidates.ReadBatch, MatchDatabase=root.pileup.MatchDatabase,
+        sequence=root.sequence,
+    )
+
+
+PORT, JAX = _package(mapper_tpu_torch), _package(mapper_tpu)
+
+
+def _emissions(pkg):
     """Two contigs and 200 clean full-length ungapped emissions on them
     (reverse-complemented reads and SNPs included), as the engine hands them
-    to `add_rows`, with the host MatchDatabase's pileups of the same."""
+    to `add_rows`, with the host MatchDatabase's pileups of the same, built
+    from `pkg`'s classes (the same seed on both packages)."""
+    Sequence, blocks = pkg.sequence.Sequence, pkg.blocks
     rng = np.random.default_rng(3)
-    contigs = sort_and_complement(
+    contigs = pkg.sequence.sort_and_complement(
         [Sequence.from_text("c1", random_reference(rng, 3000)),
          Sequence.from_text("c2", random_reference(rng, 2000))]
     )
-    seq_db = SequenceDatabase(contigs)
+    seq_db = pkg.sequence.SequenceDatabase(contigs)
     forward = [s for s in contigs if s.complemented_from is None]
     index = {id(s): k for k, s in enumerate(contigs)}
     reads, rows = [], []
@@ -60,16 +73,20 @@ def emissions():
         reads.append(Sequence.from_text(f"r{i}", rc_text(text) if reversed_ else text))
         rows.append((i, reversed_, contig, off, n))
 
-    params = AlignmentParameters.defaults()
-    host_db = MatchDatabase(QEF)
+    params = pkg.params.AlignmentParameters.defaults()
+    host_db = pkg.MatchDatabase(QEF)
     results = []
     for i, reversed_, contig, off, n in rows:
         seq_a = reads[i].reverse_complement() if reversed_ else reads[i]
-        alignment = new_sequence_alignment([AlignedBlock(seq_a, contig, 0, off, n, n)], False, params)
-        results.append(QueryAlignments.single_component([reads[i]], [QueryAlignment(alignment)]))
+        alignment = blocks.new_sequence_alignment(
+            [blocks.AlignedBlock(seq_a, contig, 0, off, n, n)], False, params
+        )
+        results.append(
+            blocks.QueryAlignments.single_component([reads[i]], [blocks.QueryAlignment(alignment)])
+        )
     host_db.add_alignments(results)
     args = (
-        ReadBatch.from_sequences(reads),
+        pkg.ReadBatch.from_sequences(reads),
         np.array([r[0] for r in rows]),
         np.array([r[1] for r in rows], dtype=bool),
         np.array([int(seq_db.starts[index[id(r[2])]]) + r[3] for r in rows]),
@@ -79,8 +96,20 @@ def emissions():
     return seq_db, args, host_db.group_by_position()
 
 
-def _merged(pileup):
-    db = MatchDatabase(QEF)
+@pytest.fixture(scope="module")
+def emissions():
+    """The port's emissions, built from its own classes."""
+    return _emissions(PORT)
+
+
+@pytest.fixture(scope="module")
+def jax_emissions():
+    """The same emissions built from the JAX package's classes."""
+    return _emissions(JAX)
+
+
+def _merged(pileup, pkg=PORT):
+    db = pkg.MatchDatabase(QEF)
     pileup.merge_into(db)
     return {seq.name: p for seq, p in db.group_by_position().items()}
 
@@ -92,16 +121,17 @@ def _assert_same(got, want):
         np.testing.assert_array_equal(got[seq.name].end, p.end)
 
 
-def test_pileups_equal_jax_and_host(emissions):
+def test_pileups_equal_jax_and_host(emissions, jax_emissions):
     seq_db, args, host = emissions
     port = DevicePileup(seq_db, QEF, torch.device("cpu"))
     port.add_rows(*args)
-    jax_dp = JaxDevicePileup(seq_db, QEF)
-    jax_dp.add_rows(*args)
+    jax_seq_db, jax_args, _ = jax_emissions
+    jax_dp = JaxDevicePileup(jax_seq_db, QEF)
+    jax_dp.add_rows(*jax_args)
     assert port.num_rows_accumulated == jax_dp.num_rows_accumulated == 200
     got = _merged(port)
     _assert_same(got, host)
-    jax_merged = _merged(jax_dp)
+    jax_merged = _merged(jax_dp, JAX)
     for name, p in got.items():
         np.testing.assert_array_equal(p.middle, jax_merged[name].middle)
         np.testing.assert_array_equal(p.end, jax_merged[name].end)

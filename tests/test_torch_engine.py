@@ -1,7 +1,8 @@
 """The port's BatchAligner on `torch.device("cpu")` against `mapper_tpu`'s
-BatchAligner on one index: SamWriter output byte-identical.  Short reads take
-the int16 scorer, reads over 512 bp the f32 one (the plain PyTorch versions
-of the CUDA kernels on the CPU)."""
+BatchAligner, each on its own package's index, queries and parameters built
+from the same reference and reads: SamWriter output byte-identical.  Short
+reads take the int16 scorer, reads over 512 bp the f32 one (the plain
+PyTorch versions of the CUDA kernels on the CPU)."""
 
 import io
 import sys
@@ -12,12 +13,16 @@ import pytest
 import torch
 
 from benchmarks.simlib import random_reference, rc_text
-from mapper_tpu import Api, AlignmentParameters
-from mapper_tpu.align.query import Query
+import mapper_tpu
+from mapper_tpu.align.query import Query as JaxQuery
 from mapper_tpu.batch.engine import BatchAligner as JaxBatchAligner
-from mapper_tpu.io.sam import SamWriter
-from mapper_tpu.sequence import Sequence
+from mapper_tpu.io.sam import SamWriter as JaxSamWriter
+from mapper_tpu.sequence import Sequence as JaxSequence
+from mapper_tpu_torch import Api, AlignmentParameters
 from mapper_tpu_torch.align import banded
+from mapper_tpu_torch.align.query import Query
+from mapper_tpu_torch.io.sam import SamWriter
+from mapper_tpu_torch.sequence import Sequence
 from mapper_tpu_torch.batch import engine as torch_engine
 from mapper_tpu_torch.batch.engine import BatchAligner, upload_reference
 from mapper_tpu_torch.simulate import simulate_reads
@@ -29,21 +34,34 @@ CPU = torch.device("cpu")
 def workload():
     rng = np.random.default_rng(2024)
     ref = random_reference(rng, 50_000)
-    index = Api.new_database({"chrA": ref[:30_000], "chrB": ref[30_000:]})
+    contigs = {"chrA": ref[:30_000], "chrB": ref[30_000:]}
+    index = Api.new_database(contigs)
     short = simulate_reads(rng, ref, 512, 150, snp_rate=0.01, indel_fraction=0.2)
     long_ = simulate_reads(rng, ref, 6, 700, prefix="L")
-    return ref, index, short, long_
+    return ref, index, short, long_, mapper_tpu.Api.new_database(contigs)
 
 
 def _queries(reads):
     return [Query(Sequence.from_text(name, text)) for name, text in reads]
 
 
-def _sam(index, results, paired=False):
+def _jax_queries(reads):
+    return [JaxQuery(JaxSequence.from_text(name, text)) for name, text in reads]
+
+
+def _sam(index, results, paired=False, writer=SamWriter):
     stream = io.StringIO()
     seq_db = index.hashblock_database.get_sequence_database()
-    SamWriter(seq_db, stream, paired).add_alignments(results)
+    writer(seq_db, stream, paired).add_alignments(results)
     return stream.getvalue()
+
+
+def _jax_sam(jax_index, results, paired=False):
+    return _sam(jax_index, results, paired, JaxSamWriter)
+
+
+def _jax_params():
+    return mapper_tpu.AlignmentParameters.defaults()
 
 
 @pytest.fixture
@@ -63,14 +81,14 @@ def scorer_calls(monkeypatch):
 
 @pytest.mark.parametrize("kind", ["short", "long"])
 def test_engine_sam_matches_jax_engine(workload, scorer_calls, kind):
-    _, index, short, long_ = workload
+    _, index, short, long_, jax_index = workload
     reads = short if kind == "short" else long_
     params = AlignmentParameters.defaults()
-    want = JaxBatchAligner(index, params).process_batch(_queries(reads))
+    want = JaxBatchAligner(jax_index, _jax_params()).process_batch(_jax_queries(reads))
     engine = BatchAligner(index, params, CPU)
     got = engine.process_batch(_queries(reads))
     sam = _sam(index, got)
-    assert sam == _sam(index, want)
+    assert sam == _jax_sam(jax_index, want)
     assert sum(1 for r in got if r is not None and any(r.get_alignments())) >= 0.95 * len(reads)
     # the kernel's plain version scored the chunk, on the int16 path for
     # 150 bp and the f32 path above 512 bp
@@ -78,7 +96,7 @@ def test_engine_sam_matches_jax_engine(workload, scorer_calls, kind):
 
 
 def test_host_scoring_switch_matches(workload, monkeypatch, scorer_calls):
-    _, index, short, _ = workload
+    _, index, short, _, _ = workload
     params = AlignmentParameters.defaults()
     reads = short[:128]
     kernel = _sam(index, BatchAligner(index, params, CPU).process_batch(_queries(reads)))
@@ -92,7 +110,7 @@ def test_host_scoring_switch_matches(workload, monkeypatch, scorer_calls):
 def test_host_scoring_long_reads_matches(workload, monkeypatch, scorer_calls):
     """With the host-scoring ceiling raised above the read length, reads over
     512 bp are scored by the native DP too, with the f32 scorer's SAM."""
-    _, index, _, long_ = workload
+    _, index, _, long_, _ = workload
     params = AlignmentParameters.defaults()
     kernel = _sam(index, BatchAligner(index, params, CPU).process_batch(_queries(long_)))
     n_kernel = len(scorer_calls)
@@ -104,7 +122,7 @@ def test_host_scoring_long_reads_matches(workload, monkeypatch, scorer_calls):
 
 
 def test_paired_engine_matches_jax_engine(workload):
-    ref, index, _, _ = workload
+    ref, index, _, _, jax_index = workload
     rng = np.random.default_rng(5)
     queries = []
     for i in range(48):
@@ -119,24 +137,23 @@ def test_paired_engine_matches_jax_engine(workload):
             (f"p{i}/1", frag[:100], f"p{i}/2", rc_text(frag[-100:]))
         )
 
-    def make():
+    def make(query=Query, sequence=Sequence):
         return [
-            Query(Sequence.from_text(a, x), Sequence.from_text(b, y),
+            query(sequence.from_text(a, x), sequence.from_text(b, y),
                   expected_inner_distance=100, spacing_deviation_per_unit_penalty=50)
             for a, x, b, y in queries
         ]
 
-    params = AlignmentParameters.defaults()
-    want = JaxBatchAligner(index, params).process_batch(make())
-    got = BatchAligner(index, params, CPU).process_batch(make())
-    assert _sam(index, got, paired=True) == _sam(index, want, paired=True)
+    want = JaxBatchAligner(jax_index, _jax_params()).process_batch(make(JaxQuery, JaxSequence))
+    got = BatchAligner(index, AlignmentParameters.defaults(), CPU).process_batch(make())
+    assert _sam(index, got, paired=True) == _jax_sam(jax_index, want, paired=True)
 
 
 def test_concurrent_batches_share_one_engine(workload):
     """process_batch from several threads against one engine (as the CLI's
     pool runs it): the results and the fallback-reason counts match serial
     runs, and the reference is uploaded once."""
-    _, index, short, _ = workload
+    _, index, short, _, _ = workload
     params = AlignmentParameters.defaults()
     chunks = [short[i * 64 : (i + 1) * 64] for i in range(4)]
     serial = BatchAligner(index, params, CPU)
@@ -173,7 +190,7 @@ def test_concurrent_batches_share_one_engine(workload):
 
 
 def test_upload_reference(workload):
-    _, index, _, _ = workload
+    _, index, _, _, _ = workload
     concat = index.hashblock_database.get_sequence_database().concatenated_codes()
     t = upload_reference(concat, CPU)
     assert t.dtype == torch.uint8 and t.device == CPU
@@ -189,7 +206,7 @@ def test_upload_reference(workload):
     ],
 )
 def test_unported_options_raise(workload, monkeypatch, kwargs, env):
-    _, index, _, _ = workload
+    _, index, _, _, _ = workload
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError):
@@ -203,25 +220,26 @@ def test_device_pileup_raises_if_set(workload):
     engine refused the device pileup; it is kept so the test's record
     carries on."""
     from mapper_tpu.batch.device_pileup import DevicePileup as JaxDevicePileup
-    from mapper_tpu.pileup import MatchDatabase
+    from mapper_tpu.pileup import MatchDatabase as JaxMatchDatabase
     from mapper_tpu_torch.batch.device_pileup import DevicePileup
+    from mapper_tpu_torch.pileup import MatchDatabase
 
-    _, index, short, _ = workload
+    _, index, short, _, jax_index = workload
     params = AlignmentParameters.defaults()
     seq_db = index.hashblock_database.get_sequence_database()
     engine = BatchAligner(index, params, CPU)
     assert engine.device_pileup is None
     engine.device_pileup = DevicePileup(seq_db, 0.1, CPU)
-    jax_engine = JaxBatchAligner(index, params)
-    jax_engine.device_pileup = JaxDevicePileup(seq_db, 0.1)
+    jax_engine = JaxBatchAligner(jax_index, _jax_params())
+    jax_engine.device_pileup = JaxDevicePileup(jax_index.hashblock_database.get_sequence_database(), 0.1)
     got = engine.process_batch(_queries(short))
-    want = jax_engine.process_batch(_queries(short))
+    want = jax_engine.process_batch(_jax_queries(short))
     counted = [getattr(r, "device_counted", False) for r in got]
     assert counted == [getattr(r, "device_counted", False) for r in want]
     assert engine.device_pileup.num_rows_accumulated == sum(counted) > 0.5 * len(short)
     merged = []
-    for pileup in (engine.device_pileup, jax_engine.device_pileup):
-        db = MatchDatabase(0.1)
+    for pileup, database in ((engine.device_pileup, MatchDatabase), (jax_engine.device_pileup, JaxMatchDatabase)):
+        db = database(0.1)
         pileup.merge_into(db)
         merged.append({seq.name: (p.middle, p.end) for seq, p in db.group_by_position().items()})
     assert merged[0].keys() == merged[1].keys() == {"chrA", "chrB"}
@@ -234,10 +252,10 @@ def test_cache_hits_replay_the_fresh_alignment(workload):
     """Reads whose content was seen before take the cached alignment: the
     SAM and the pileup of the hits equal those of the same reads aligned
     afresh, on both strands."""
-    from mapper_tpu.align.cache import AlignmentCache
-    from mapper_tpu.pileup import MatchDatabase
+    from mapper_tpu_torch.align.cache import AlignmentCache
+    from mapper_tpu_torch.pileup import MatchDatabase
 
-    _, index, short, _ = workload
+    _, index, short, _, _ = workload
     params = AlignmentParameters.defaults()
     engine = BatchAligner(index, params, CPU)
     engine.cache = AlignmentCache()
@@ -255,6 +273,39 @@ def test_cache_hits_replay_the_fresh_alignment(workload):
         db = MatchDatabase(0.1)
         db.add_alignments(results)
         pileups.append({seq.name: (p.middle, p.end) for seq, p in db.group_by_position().items()})
+    for name, arrays in pileups[0].items():
+        for got, want in zip(arrays, pileups[1][name]):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_exact_engine_cache_hits_keep_the_strand(workload):
+    """The sequential worker (`--engine exact`) replays a cache hit with
+    `QueryAlignment.with_query`: reverse-strand hits keep the reverse
+    complement of the new read, so their SAM and pileup equal those of the
+    same reads aligned afresh."""
+    from mapper_tpu_torch.align.cache import AlignmentCache
+    from mapper_tpu_torch.align.worker import AlignerWorker
+    from mapper_tpu_torch.pileup import MatchDatabase
+
+    _, index, short, _, _ = workload
+    reads = short[:96]
+    params = AlignmentParameters.defaults()
+    worker = AlignerWorker(index, params, cache=AlignmentCache())
+    worker.cache.choose_enable_fraction = lambda batch_size: 1.0  # store every result
+    worker.process_batch(_queries(reads))
+    twins = [(f"twin{i}", text) for i, (_, text) in enumerate(reads)]
+    hits = worker.process_batch(_queries(twins))
+    assert worker.stats.num_cache_hits >= 0.9 * len(reads)
+    fresh = AlignerWorker(index, params).process_batch(_queries(twins))
+    sam = _sam(index, hits)
+    assert sum(line.split("\t")[1] == "16" for line in sam.splitlines()) > 0.3 * len(reads)
+    assert sam == _sam(index, fresh)
+    pileups = []
+    for results in (hits, fresh):
+        db = MatchDatabase(0.1)
+        db.add_alignments(results)
+        pileups.append({seq.name: (p.middle, p.end) for seq, p in db.group_by_position().items()})
+    assert pileups[0].keys() == pileups[1].keys()
     for name, arrays in pileups[0].items():
         for got, want in zip(arrays, pileups[1][name]):
             np.testing.assert_array_equal(got, want)

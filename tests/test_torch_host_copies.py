@@ -1,0 +1,211 @@
+"""The port's own copies of the JAX package's host code stay faithful.
+
+Each copied module equals its `mapper_tpu` original after the package rename
+(`mapper_tpu.` to `mapper_tpu_torch.`, `from mapper_tpu import` to `from
+mapper_tpu_torch import`; two docstrings name reference files without the
+reference tree's absolute location), except for the intended differences
+named in `INTENDED`; so do the helpers the port's `cli.py` took from
+`mapper_tpu/cli.py`; the native C++ sources are copied byte for byte.  The two
+packages' native libraries build into separate cache directories, the
+port's index built from a seeded reference holds the same arrays as the JAX
+package's, and `convert.parameters_from_reference` carries the parameters
+across.
+"""
+
+import ast
+import dataclasses
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import mapper_tpu
+import mapper_tpu.native
+import mapper_tpu_torch
+import mapper_tpu_torch.native
+from benchmarks.simlib import random_reference
+from mapper_tpu_torch import convert
+
+REPO = Path(__file__).resolve().parent.parent
+JAX_PACKAGE, PORT = REPO / "mapper_tpu", REPO / "mapper_tpu_torch"
+
+MODULES = (
+    "basepairs.py", "sequence.py", "api.py", "logging.py", "pileup.py", "providers.py", "stats.py",
+    "align/params.py", "align/blocks.py", "align/query.py", "align/cache.py",
+    "align/candidates.py", "align/dp.py", "align/query_aligner.py", "align/worker.py",
+    "batch/candidates.py",
+    "index/__init__.py", "index/hashblock.py", "index/scalar.py", "index/packedmap.py",
+    "index/database.py", "index/dircache.py", "index/duplication.py", "index/ancestry.py",
+    "io/__init__.py", "io/fastx.py", "io/sam.py", "io/vcf.py", "io/mutations.py",
+    "io/refcounts.py",
+    "native/__init__.py",
+)
+NATIVE_SOURCES = ("native/dp.cpp", "native/candidates.cpp", "native/counting.cpp", "native/textrows.cpp")
+
+# module -> (text of the renamed original, text of the port's copy)
+INTENDED = {
+    # a cache hit keeps each component's strand (the JAX package gives a
+    # reverse-strand component the forward read)
+    "align/blocks.py": [(
+        """        new_components = [
+            c.with_sequence_a(sequences[i]) for i, c in enumerate(self.components)
+        ]""",
+        """        # each component keeps its strand: one aligned as the read's reverse
+        # complement gets the new read's reverse complement
+        new_components = [
+            c.with_sequence_a(
+                sequences[i].reverse_complement()
+                if c.get_sequence_a().complemented_from is not None
+                else sequences[i]
+            )
+            for i, c in enumerate(self.components)
+        ]""",
+    )],
+    # the native libraries build into a cache directory of the port's own
+    "native/__init__.py": [(
+        """    base = os.environ.get("MAPPER_TPU_NATIVE_CACHE")
+    if not base:
+        xdg = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+            os.path.expanduser("~"), ".cache"
+        )
+        base = os.path.join(xdg, "mapper_tpu", "native")""",
+        """    # a subdirectory of its own, so that neither package loads a library
+    # built from the other's sources
+    base = os.environ.get("MAPPER_TPU_NATIVE_CACHE")
+    if base:
+        base = os.path.join(base, "mapper_tpu_torch")
+    else:
+        xdg = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+            os.path.expanduser("~"), ".cache"
+        )
+        base = os.path.join(xdg, "mapper_tpu_torch", "native")""",
+    )],
+}
+
+
+def renamed(text: str) -> str:
+    """The package rename; the copies also name reference files without the
+    absolute location of the reference's source tree."""
+    text = re.sub(r"/[\w/]*/src/main/java/mapper/", "", text)
+    text = re.sub(r"\bmapper_tpu\.", "mapper_tpu_torch.", text)
+    return re.sub(r"\bfrom mapper_tpu import\b", "from mapper_tpu_torch import", text)
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_copy_equals_the_renamed_original(module):
+    want = renamed((JAX_PACKAGE / module).read_text())
+    for original, port in INTENDED.get(module, []):
+        assert want.count(original) == 1, f"{module}: the intended difference no longer applies"
+        want = want.replace(original, port)
+    assert (PORT / module).read_text() == want
+
+
+@pytest.mark.parametrize("source", NATIVE_SOURCES)
+def test_native_source_is_copied_byte_for_byte(source):
+    assert (PORT / source).read_bytes() == (JAX_PACKAGE / source).read_bytes()
+
+
+CLI_HELPERS = (
+    "DEFAULT_EXPECTED_PAIR_DISTANCE", "DEFAULT_SPACING_DEVIATION", "_INT_MAX",
+    "usage_error", "_parse_threshold_subflags",
+)
+
+
+def _top_level_sources(path: Path) -> dict[str, str]:
+    """Name -> source text of each top-level function and single-name
+    assignment of a module."""
+    text = path.read_text()
+    found = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef):
+            found[node.name] = ast.get_source_segment(text, node)
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1 and isinstance(node.targets[0], ast.Name):
+            found[node.targets[0].id] = ast.get_source_segment(text, node)
+    return found
+
+
+@pytest.mark.parametrize("name", CLI_HELPERS)
+def test_cli_helper_equals_the_renamed_original(name):
+    """The helpers the port's `cli.py` took from `mapper_tpu/cli.py`."""
+    want = _top_level_sources(JAX_PACKAGE / "cli.py")[name]
+    assert _top_level_sources(PORT / "cli.py")[name] == renamed(want)
+
+
+def test_intended_differences_name_copied_modules():
+    assert set(INTENDED) <= set(MODULES)
+
+
+@pytest.mark.parametrize("override", [None, "shared"])
+def test_native_libraries_build_apart(monkeypatch, tmp_path, override):
+    """Each package loads only libraries built from its own sources: the
+    cache directories differ, with and without MAPPER_TPU_NATIVE_CACHE."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    if override:
+        monkeypatch.setenv("MAPPER_TPU_NATIVE_CACHE", str(tmp_path / override))
+    else:
+        monkeypatch.delenv("MAPPER_TPU_NATIVE_CACHE", raising=False)
+    port, jax = Path(mapper_tpu_torch.native._cache_dir()), Path(mapper_tpu.native._cache_dir())
+    assert port != jax and port.is_dir() and jax.is_dir()
+    assert "mapper_tpu_torch" in port.parts and "mapper_tpu_torch" not in jax.parts
+
+
+def _reference(seed: int) -> dict:
+    """Two contigs from a seeded random reference, with a 400 bp block
+    copied three times so the duplication detector has work."""
+    rng = np.random.default_rng(seed)
+    text = random_reference(rng, 12_000)
+    block = text[1000:1400]
+    text = text[:5000] + block + text[5000:8000] + block + text[8000:] + block
+    return {"chrA": text[:7000], "chrB": text[7000:]}
+
+
+@pytest.fixture(scope="module")
+def indexes():
+    contigs = _reference(17)
+    return mapper_tpu_torch.Api.new_database(contigs), mapper_tpu.Api.new_database(contigs)
+
+
+def test_index_arrays_equal(indexes):
+    """Sequences, hash tables (every size's packed map and the merged
+    cross-size view) and duplications are equal."""
+    port, jax = indexes
+    port_db, jax_db = port.hashblock_database, jax.hashblock_database
+    np.testing.assert_array_equal(
+        port_db.get_sequence_database().concatenated_codes(),
+        jax_db.get_sequence_database().concatenated_codes(),
+    )
+    top = max(jax_db.get_min_interesting_size() + 16, jax_db.max_fully_set_up_size)
+    for db in (port_db, jax_db):
+        db.require_set_up_through_size(top)
+    assert sorted(port_db.maps) == sorted(jax_db.maps) and jax_db.maps
+    for size, want in jax_db.maps.items():
+        got = port_db.maps[size]
+        assert (got.capacity, got.max_interesting_count) == (want.capacity, want.max_interesting_count)
+        for name in ("counts", "offsets", "values"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=f"{size} {name}")
+    merged_port, merged_jax = port_db.merged_index(), jax_db.merged_index()
+    assert merged_port.keys() == merged_jax.keys()
+    for key, want in merged_jax.items():
+        np.testing.assert_array_equal(merged_port[key], want, err_msg=key)
+
+    def duplications(index):
+        index.duplication_detector.ensure_detected()
+        return [(d.length, list(d.positions)) for d in index.duplication_detector.get_all()]
+
+    assert duplications(port) == duplications(jax) and duplications(jax)
+
+
+def test_parameters_from_reference():
+    jax_params = mapper_tpu.AlignmentParameters.defaults(mutation_penalty=2.0, max_error_rate=0.2)
+    jax_params.base_penalty(1, 2)  # caches a table the port's object rebuilds
+    fields = dict(vars(jax_params), max_num_matches=np.int64(7))
+    port = convert.parameters_from_reference(fields)
+    assert isinstance(port, mapper_tpu_torch.AlignmentParameters)
+    assert dataclasses.asdict(port) == dict(dataclasses.asdict(jax_params), max_num_matches=7)
+    assert type(port.max_num_matches) is int
+    np.testing.assert_array_equal(port.substitution_table(), jax_params.substitution_table())
+    with pytest.raises(ValueError, match="unknown"):
+        convert.parameters_from_reference(dict(fields, band=64))
+    with pytest.raises(ValueError, match="missing"):
+        convert.parameters_from_reference({"mutation_penalty": 1.0})

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card, and the device pileup on the card against the same on the CPU.
-Skipped without one.  Imports no JAX, so it also runs where JAX is not
-installed:
+Skipped without one.  Imports neither JAX nor the JAX package, so it also
+runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
@@ -11,13 +11,13 @@ import pytest
 import torch
 
 from benchmarks.simlib import random_reference
-from mapper_tpu.align.params import AlignmentParameters
-from mapper_tpu.batch.candidates import ReadBatch
-from mapper_tpu.pileup import MatchDatabase
-from mapper_tpu.sequence import Sequence, SequenceDatabase, sort_and_complement
 from mapper_tpu_torch.align import banded, kernels
+from mapper_tpu_torch.align.params import AlignmentParameters
+from mapper_tpu_torch.batch.candidates import ReadBatch
 from mapper_tpu_torch.batch.device_pileup import DevicePileup
+from mapper_tpu_torch.pileup import MatchDatabase
 from mapper_tpu_torch.probe_i16 import probes
+from mapper_tpu_torch.sequence import Sequence, SequenceDatabase, sort_and_complement
 from mapper_tpu_torch.simulate import scoring_candidates
 
 pytestmark = pytest.mark.cuda
@@ -200,13 +200,14 @@ def test_wrapper_rejects_bad_inputs(cuda):
 )
 def test_probe_body_equals_plain(cuda, stage, body):
     """Each probe body's kernel equals its plain version exactly: on the
-    probes' own input, over the whole int16 range (adds wrap), and on a
-    block of another width."""
+    probes' own input, over the whole int16 range (adds wrap), and on
+    blocks of the other widths the kernel takes."""
     rng = np.random.default_rng(sum(map(ord, stage + body)))
     blocks = [
         probes.probe_input(cuda),
         torch.from_numpy(rng.integers(-2**15, 2**15, (probes.T, probes.B)).astype(np.int16)).to(cuda),
-        torch.from_numpy(rng.integers(-2**15, 2**15, (7, 200)).astype(np.int16)).to(cuda),
+        torch.from_numpy(rng.integers(-2**15, 2**15, (7, 256)).astype(np.int16)).to(cuda),
+        torch.from_numpy(rng.integers(-2**15, 2**15, (9, 64)).astype(np.int16)).to(cuda),
     ]
     for x in blocks:
         before = kernels.LAUNCHES[f"probe_i16_{stage}"]
@@ -217,6 +218,14 @@ def test_probe_body_equals_plain(cuda, stage, body):
         assert got.dtype == torch.int16 and got.shape == want.shape
         assert torch.equal(got, want)
         assert torch.equal(got.cpu(), probes.plain(stage, body, x.cpu()))
+
+
+def test_probe_kernel_refuses_other_lane_counts(cuda):
+    x = torch.zeros((7, 200), dtype=torch.int16, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="lanes"):
+        probes.run("e", "sub", x)
+    assert kernels.LAUNCHES == before
 
 
 def test_device_pileup_on_the_card_equals_the_cpu(cuda):
