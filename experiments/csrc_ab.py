@@ -1,0 +1,134 @@
+"""Two builds of `mapper_tpu_torch/align/csrc/` side by side on one card:
+which kernels compile to the same SASS, and the times of the kernels both
+builds share, in turns (A B B A), each build's output held equal to the
+plain version first.
+
+    python3 experiments/csrc_ab.py A_CSRC B_CSRC
+
+A_CSRC and B_CSRC are source directories laid out as `csrc/` (for example
+the parent commit's, unpacked with `git archive` into a directory that
+.gitignore lists).  Timed: banded_i16 (K1) at [16384, 192], bands 64 and
+128; banded_i16_packed (K3) on those candidates' band-64 rows;
+banded_roll_f32 (K5) at 4,096 x 1024, band 128 (CUDA events, 20 calls); the
+40 probe bodies at [16384, 128] (CUDA-graph replay of 50 calls).  Needs a
+card and nvcc; builds under `mapper_tpu_torch/_build/`.
+"""
+import re
+import subprocess
+import sys
+from pathlib import Path
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import numpy as np
+import torch
+from mapper_tpu_torch.align import banded, kernels
+from mapper_tpu_torch.align.params import AlignmentParameters
+from mapper_tpu_torch.probe_i16 import probes
+from mapper_tpu_torch.simulate import scoring_candidates
+import chip_smoke as cs
+
+dirs = {"A": Path(sys.argv[1]).resolve(), "B": Path(sys.argv[2]).resolve()}
+libs = {key: kernels.library(build_dir=kernels.BUILD_DIR / f"ab_{key}", csrc=d) for key, d in dirs.items()}
+print(cs.gpu_line())
+
+# SASS, function by function
+nvcc = kernels.find_nvcc()
+sass = {}
+for key, lib in libs.items():
+    text = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", lib._name],
+                          capture_output=True, text=True, check=True).stdout
+    # a kernel in an anonymous namespace, and the symbols it refers to, carry
+    # a hash of their file in their names: every run of 8 or more hex digits
+    # is left out (the instructions' encodings with them, not their text),
+    # and so is the column padding, which follows the longest line
+    sass[key] = {}
+    for part in text.split("Function : ")[1:]:
+        part = "\n".join(" ".join(line.split()) for line in re.sub(r"[0-9a-f]{8,}", "#", part).splitlines())
+        sass[key][part.splitlines()[0]] = part
+common = sorted(set(sass["A"]) & set(sass["B"]))
+differ = [name for name in common if sass["A"][name] != sass["B"][name]]
+print(f"SASS: {len(common)} kernels in both builds, {len(common) - len(differ)} identical; "
+      f"only in A: {len(set(sass['A']) - set(common))}, only in B: {len(set(sass['B']) - set(common))}")
+for name in differ:
+    a, b = sass["A"][name].splitlines(), sass["B"][name].splitlines()
+    pairs = [(x, y) for x, y in zip(a, b) if x != y]
+    print(f"  differs: {name}: {len(a)} against {len(b)} lines, {len(pairs)} of the paired lines differ; first:")
+    for x, y in pairs[:2]:
+        print(f"    A {x[:120]}\n    B {y[:120]}")
+
+params = AlignmentParameters.defaults()
+
+
+def stream():
+    """The current stream when a call runs (a graph captures on its own)."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+p6 = banded._params_tuple(params)
+calls = {}  # name -> {key: (fn, output, plain output)}, timed with `timers[name]`
+timers = {}
+alive = []  # the tensors whose addresses the calls hold
+for band in (64, 128):
+    cands = scoring_candidates(np.random.default_rng(band), 16384, 192, band, ref_size=4_600_000, num_reads=4096)
+    args = banded._normalize(*[torch.as_tensor(cands[k]).cuda() for k in cs._KEYS])
+    scale, ints = banded._quantize_params(params, 192, band)
+    want = banded._gathered_core(*args, params, band)
+    reads, concat, read_id, rev, ws, lane, n, m = args
+    alive.append(args)
+    ptrs = [reads.data_ptr(), 192, concat.data_ptr(), concat.shape[0], read_id.data_ptr(), rev.data_ptr(),
+            ws.data_ptr(), lane.data_ptr(), n.data_ptr(), m.data_ptr(), 16384, band]
+    outs = {key: torch.empty((2, 16384), dtype=torch.float32, device="cuda") for key in libs}
+    calls[f"banded_i16 band {band}"] = {
+        key: (lambda lib=lib, out=outs[key], ptrs=ptrs, ints=ints, inv=banded._inv(scale): lib.mapper_banded_i16(
+            *ptrs, *ints, inv, out.data_ptr(), None, stream()), outs[key], want) for key, lib in libs.items()}
+    timers[f"banded_i16 band {band}"] = lambda fn: cs.cuda_ms(fn, 20)
+    if band == 64:
+        qg, wg = banded._gather_codes(reads, concat, read_id, rev, ws, n, 64)
+        q3, w3, n64, m64 = banded._host_rows(qg, wg, n, m, 64, cs.CHUNK)
+        scale64, ints64 = banded._quantize_params(params, q3.shape[1], 64)
+        want3 = banded._from_units(
+            *banded._pen_core_i16(q3.to(torch.int32), w3.to(torch.int32), n64, m64, ints64, 64), scale64)[0]
+        outs3 = {key: (torch.empty(16384, device="cuda"), torch.empty((16384, 64), device="cuda")) for key in libs}
+        calls["banded_i16_packed"] = {
+            key: (lambda lib=lib, o=outs3[key]: lib.mapper_banded_i16_packed(
+                q3.data_ptr(), q3.shape[1], w3.data_ptr(), w3.shape[1], n64.data_ptr(), m64.data_ptr(), 16384,
+                *ints64, banded._inv(scale64), o[0].data_ptr(), o[1].data_ptr(), stream()), outs3[key][0], want3)
+            for key, lib in libs.items()}
+        timers["banded_i16_packed"] = lambda fn: cs.cuda_ms(fn, 20)
+cands = scoring_candidates(np.random.default_rng(7), 4096, 1024, 128, ref_size=4_600_000, num_reads=4096)
+reads, concat, read_id, rev, ws, lane, n, m = banded._normalize(*[torch.as_tensor(cands[k]).cuda() for k in cs._KEYS])
+qg, wg = banded._gather_codes(reads, concat, read_id, rev, ws, n, 128)
+q5, w5, n5, m5 = banded._host_rows(qg, wg, n, m, 128, cs.CHUNK)
+want5 = banded._pen_core(q5.to(torch.int32), w5.to(torch.int32), n5, m5, p6, 128)[0]
+outs5 = {key: torch.empty(4096, device="cuda") for key in libs}
+calls["banded_roll_f32"] = {
+    key: (lambda lib=lib, o=outs5[key]: lib.mapper_banded_roll_f32(
+        q5.data_ptr(), q5.shape[1], w5.data_ptr(), w5.shape[1], n5.data_ptr(), m5.data_ptr(), 4096, 128, *p6,
+        o.data_ptr(), stream()), outs5[key], want5) for key, lib in libs.items()}
+timers["banded_roll_f32"] = lambda fn: cs.cuda_ms(fn, 20)
+x = torch.from_numpy(np.random.default_rng(0).integers(-2**15, 2**15, (16384, probes.B)).astype(np.int16)).cuda()
+for stage, bodies in probes.STAGES.items():
+    for i, body in enumerate(bodies):
+        want = probes.plain(stage, body, x)
+        outs = {key: torch.empty_like(want) for key in libs}
+        calls[f"probe {stage}.{body}"] = {
+            key: (lambda lib=lib, o=outs[key], s=kernels.PROBE_STAGES.index(stage), i=i: lib.mapper_probe_i16(
+                s, i, x.data_ptr(), o.data_ptr(), 16384, probes.B, o.shape[1], stream()), outs[key], want)
+            for key, lib in libs.items()}
+        timers[f"probe {stage}.{body}"] = lambda fn: cs.graph_ms(fn, 50)
+
+ratios = []
+for name, by_key in calls.items():
+    for key, (fn, out, want) in by_key.items():
+        assert fn() == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (name, key)
+    times = {key: [] for key in by_key}
+    for key in ["A", "B", "B", "A"]:
+        times[key].append(timers[name](by_key[key][0]) * (1e3 if name.startswith("probe") else 1))
+    a, b = np.mean(times["A"]), np.mean(times["B"])
+    ratios.append(b / a)
+    unit = "us" if name.startswith("probe") else "ms"
+    print(f"{name}: A {a:.4f} {unit} ({', '.join(f'{t:.4f}' for t in times['A'])}), "
+          f"B {b:.4f} {unit} ({', '.join(f'{t:.4f}' for t in times['B'])}), B/A {b / a:.3f}", flush=True)
+print(f"B/A over {len(ratios)} kernels and bodies: median {np.median(ratios):.3f}, "
+      f"min {min(ratios):.3f}, max {max(ratios):.3f}")

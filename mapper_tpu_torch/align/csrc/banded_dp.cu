@@ -12,8 +12,9 @@
 //                         band 64;
 //   banded_roll_f32    <- _pallas_kernel_roll (whole rows staged once);
 //   banded_chunk_f32   <- _pallas_kernel (rows staged chunk by chunk).
-// All five run the same DP step (dp_core.cuh): banded_i16 at bands 64 and
-// 128 through its warp-level pieces, the rest through its block-level ones.
+// All five run the same DP step (dp_core.cuh): banded_i16, banded_f32 and
+// banded_chunk_f32 at bands 64 and 128 through its warp-level pieces, the
+// rest (and those three at other bands) through its block-level ones.
 //
 // What bounds them on this card: per DP cell the work is a few integer or
 // float adds, mins and selects on data already in registers, and the bytes
@@ -22,25 +23,27 @@
 // each query position of a candidate depends on the previous one, so one
 // candidate's x loop is serial, and the deletion chain inside a row needs
 // log2(band) dependent exchange steps between lanes.
-// What the design does about it: banded_i16 at bands 64 and 128, the main
-// path's scorer, runs one warp per candidate with two or four lanes a thread,
-// its exchanges register shuffles and its arithmetic on two int16 lanes at
-// once (see banded_i16_warp_kernel).  The others run one block per candidate
-// (per pair for the packed kernel) and one thread per band lane, so the
-// band-wide vector ops of the TPU kernels become per-thread scalar ops and
-// the lane shifts become shared-memory exchanges through two ping-pong
-// buffers (one barrier per exchange); many independent candidates run on
-// each SM (up to 32 blocks of 64 lanes, or 16 of 128) to hide the barrier
-// and shared-memory latency.
+// What the design does about it: at bands 64 and 128, banded_i16 (the main
+// path's scorer), banded_f32 and banded_chunk_f32 run one warp per
+// candidate, their exchanges register shuffles: banded_i16 with two or four
+// lanes a thread and its arithmetic on two int16 lanes at once (see
+// banded_i16_warp_kernel), the float32 two with two or four float lanes a
+// thread (see banded_f32_warp_kernel).  The others run one block per
+// candidate (per pair for the packed kernel) and one thread per band lane,
+// so the band-wide vector ops of the TPU kernels become per-thread scalar
+// ops and the lane shifts become shared-memory exchanges through two
+// ping-pong buffers (one barrier per exchange); many independent candidates
+// run on each SM (up to 32 blocks of 64 lanes, or 16 of 128) to hide the
+// barrier and shared-memory latency.
 //
 // Bit-parity with the reference: the float path uses __fadd_rn/__fmul_rn/
 // __fdiv_rn so no multiply-add is ever contracted, keeps the Kogge-Stone
 // order min(chain, moved + f32(step) * del_ext), computes the ambiguity
 // penalty as (ambiguity * f32(popcount - 1)) / 3 and sums the diagonals in
-// x order.  The int path clamps every sum to INF16 exactly where the
-// reference clamps it, with its int16 state in int32 registers (block
-// kernels) or two to a 32-bit register (warp kernel; no sum leaves int16,
-// see I16x2Ops).
+// x order, in the block and the warp kernels alike.  The int path clamps
+// every sum to INF16 exactly where the reference clamps it, with its int16
+// state in int32 registers (block kernels) or two to a 32-bit register (warp
+// kernel; no sum leaves int16, see I16x2Ops).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,6 +55,36 @@ namespace {
 using namespace dp;
 
 constexpr int kHalf = 64;  // the packed kernel's per-candidate band
+constexpr int kCandsPerBlock = 4;  // the warp kernels' candidates a block, one warp each
+constexpr int kPenTable = 16 * 16;  // the warp kernels' penalty table: (query, window) code pairs
+
+// The bands the warp kernels take (kernels.py's WARP_BANDS); any other band
+// takes a block kernel.
+bool warp_band(int band) { return band == 64 || band == 128; }
+
+// Dynamic shared memory of each layout (kernels.py's smem_bytes computes the
+// same sums).  `width` is the query positions staged at once: the read width,
+// or banded_chunk_f32's chunk.
+// A block kernel: two ping-pong buffers of `band` 4-byte values (int for
+// I16Ops, float for F32Ops), then the query codes [width] and the window
+// [width + band].
+size_t block_smem(int64_t width, int band) {
+  return 2 * band * sizeof(float) + static_cast<size_t>(2 * width + band);
+}
+// A warp kernel: the penalty table of `entry`-byte values, then per warp its
+// query codes [width] and window [width + band].
+size_t warp_smem(int64_t width, int band, size_t entry) {
+  return kPenTable * entry + static_cast<size_t>(kCandsPerBlock * (2 * width + band));
+}
+// The packed kernel: two ping-pong buffers of two halves' ints, then per
+// half the query codes [lq] and the window [lq + kHalf].
+size_t packed_smem(int64_t lq) {
+  return 2 * 2 * kHalf * sizeof(int) + static_cast<size_t>(2 * (2 * lq + kHalf));
+}
+
+unsigned warp_grid(int64_t num_cands) {
+  return static_cast<unsigned>((num_cands + kCandsPerBlock - 1) / kCandsPerBlock);
+}
 
 // banded_i16 / banded_f32.
 // grid: one block per candidate; block: `band` threads, thread k = lane k.
@@ -131,6 +164,34 @@ __global__ void banded_kernel(
   if (diag_out != nullptr) diag_out[b * band + k] = ops.diag(diag);
 }
 
+// A warp stages its candidate's query row [lq] and window [lq + band] in
+// its own shared memory with banded_kernel's gathers: the reverse complement
+// over the first n, zero past n, window indices clamped to the reference's
+// bounds.  Codes are 4-bit (basepairs); the mask only keeps the table
+// lookups in bounds.
+__device__ __forceinline__ void warp_stage_gathered(
+    const uint8_t* __restrict__ row, int64_t lq, int n, bool rev,
+    const uint8_t* __restrict__ concat, int64_t concat_len, int64_t ws, int band,
+    uint8_t* s_q, uint8_t* s_w, int t) {
+  for (int64_t x = t; x < lq; x += 32) {
+    int c = __ldg(row + x);
+    if (rev) {
+      int64_t src = static_cast<int64_t>(n) - 1 - x;
+      src = src < 0 ? 0 : (src > lq - 1 ? lq - 1 : src);
+      const int f = __ldg(row + src);
+      const int comp = ((f & 1) << 3) | ((f & 2) << 1) | ((f & 4) >> 1) | ((f & 8) >> 3);
+      c = x < n ? comp : 0;
+    }
+    s_q[x] = static_cast<uint8_t>(c & 15);
+  }
+  for (int64_t j = t; j < lq + band; j += 32) {
+    int64_t idx = ws + j;
+    idx = idx < 0 ? 0 : (idx > concat_len - 1 ? concat_len - 1 : idx);
+    s_w[j] = static_cast<uint8_t>(__ldg(concat + idx) & 15);
+  }
+  __syncwarp();
+}
+
 // banded_i16 at bands 64 and 128 (band = 64 * P): one warp per candidate,
 // kCandsPerBlock candidates per block.  Thread t of a warp holds lanes
 // [2P t, 2P t + 2P) as P registers of two int16 (dp_core's warp-level
@@ -150,14 +211,6 @@ __global__ void banded_kernel(
 // exchange, 2 + log2(band) exchanges a step.  Staging the row and window in shared memory measured
 // 1.6x faster than reading them through the read-only path inside the x
 // loop (experiments/k1_staging.py, NVIDIA H100 80GB HBM3, 700 W).
-constexpr int kCandsPerBlock = 4;
-constexpr int kPenTable = 16 * 16;
-
-// its dynamic shared memory (kernels.py checks the same sum)
-size_t i16_warp_smem(int64_t lq, int band) {
-  return kPenTable * sizeof(int16_t) + static_cast<size_t>(kCandsPerBlock * (2 * lq + band));
-}
-
 template <int P>
 __global__ void __launch_bounds__(32 * kCandsPerBlock) banded_i16_warp_kernel(
     const uint8_t* __restrict__ reads, int64_t lq,
@@ -188,25 +241,7 @@ __global__ void __launch_bounds__(32 * kCandsPerBlock) banded_i16_warp_kernel(
   const bool rev = reversed[b] != 0;
   const int64_t ws = win_start[b];
   const uint8_t* row = reads + read_id[b] * lq;
-
-  // codes are 4-bit (basepairs); the mask only keeps the table lookup in bounds
-  for (int64_t x = t; x < lq; x += 32) {
-    int c = __ldg(row + x);
-    if (rev) {
-      int64_t src = static_cast<int64_t>(n) - 1 - x;
-      src = src < 0 ? 0 : (src > lq - 1 ? lq - 1 : src);
-      const int f = __ldg(row + src);
-      const int comp = ((f & 1) << 3) | ((f & 2) << 1) | ((f & 4) >> 1) | ((f & 8) >> 3);
-      c = x < n ? comp : 0;
-    }
-    s_q[x] = static_cast<uint8_t>(c & 15);
-  }
-  for (int64_t j = t; j < lq + kBand; j += 32) {
-    int64_t idx = ws + j;
-    idx = idx < 0 ? 0 : (idx > concat_len - 1 ? concat_len - 1 : idx);
-    s_w[j] = static_cast<uint8_t>(__ldg(concat + idx) & 15);
-  }
-  __syncwarp();
+  warp_stage_gathered(row, lq, n, rev, concat, concat_len, ws, kBand, s_q, s_w, t);
 
   const I16x2Ops ops2 = I16x2Ops::of(ops);
   const int nx = n < lq ? n : static_cast<int>(lq);
@@ -253,6 +288,113 @@ __global__ void __launch_bounds__(32 * kCandsPerBlock) banded_i16_warp_kernel(
   if (diag_out != nullptr) {
 #pragma unroll
     for (int i = 0; i < kLanes; ++i) diag_out[b * kBand + k0 + i] = ops.diag(diag[i]);
+  }
+}
+
+// The float32 warp kernels' shared pieces.  The penalty of every (query
+// code, window code) pair, F32Ops::pen's expression, built once per block.
+__device__ __forceinline__ void f32_pen_table(const F32Ops& ops, float* pen_tab) {
+  for (int i = threadIdx.x; i < kPenTable; i += blockDim.x) pen_tab[i] = ops.pen(i >> 4, i & 15);
+  __syncthreads();  // the table is the block's; from here on each warp works alone
+}
+
+// One query position's penalties for the thread's lanes k0 .. k0 + P - 1
+// from its window cells wx[0 .. P), and `live` where the lane has a window
+// cell (x + k < m, i.e. p < lim with lim = m - x - k0).
+template <int P>
+__device__ __forceinline__ void f32_row(const float* pen_tab, int q, const uint8_t* wx, int lim,
+                                        float (&pen)[P], bool (&live)[P]) {
+  const int q16 = q << 4;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    pen[p] = pen_tab[q16 | wx[p]];
+    live[p] = p < lim;
+  }
+}
+
+// The candidate's score: final_lane over the band, its min over the warp.
+// The thread's own min starts at its first lane, so a state above kBig
+// passes as it does through capture.
+template <int P>
+__device__ __forceinline__ float f32_capture(const F32Ops& ops, int n, int64_t lq, int k0, int m,
+                                             const float (&best)[P]) {
+  float fin = final_lane(ops, n, lq, k0, m, best[0]);
+#pragma unroll
+  for (int p = 1; p < P; ++p) fin = vmin(fin, final_lane(ops, n, lq, k0 + p, m, best[p]));
+  return warp_min(fin);
+}
+
+// banded_f32 at bands 64 and 128 (band = 32 * P): one warp per candidate,
+// kCandsPerBlock candidates per block, as banded_i16_warp_kernel.  Thread t
+// of a warp holds lanes [P t, P t + P) as P float registers (dp_core's
+// float32 warp-level pieces, F32x1Ops): the insertion shift, the chain
+// opening and the log2(band) Kogge-Stone rounds are register shuffles and
+// in-thread moves, and every lane computes the float expression of
+// banded_kernel<F32Ops> in the same order, so the two are bit-identical
+// (its min as fminf: see F32x1Ops).
+// The x loop has no barrier.  Shared memory: the penalty table, float
+// [16 * 16], built once per block; per warp its query row [lq] and window
+// [lq + band].  The prologue and epilogue are banded_kernel's: the same
+// gathers, the same diagonal sums in x order, the same capture, lane pick
+// and diag_out.  Other bands take banded_kernel<F32Ops>.
+// What bounds it: the float32 operations of the DP cells (12 a cell at one a
+// lane a clock) and, at band 128, the 25 warp shuffles a step; the block
+// kernel lost most of its time to one block barrier and shared-memory round
+// trip per exchange, 2 + log2(band) exchanges a step.  fminf in place of a
+// compare and a select took the warp kernels 1.23-1.39x faster
+// (experiments/f32_warp_variants.py, NVIDIA H100 80GB HBM3, 700 W).
+template <int P>
+__global__ void __launch_bounds__(32 * kCandsPerBlock) banded_f32_warp_kernel(
+    const uint8_t* __restrict__ reads, int64_t lq,
+    const uint8_t* __restrict__ concat, int64_t concat_len,
+    const int64_t* __restrict__ read_id, const uint8_t* __restrict__ reversed,
+    const int64_t* __restrict__ win_start, const int64_t* __restrict__ lane,
+    const int32_t* __restrict__ n_arr, const int32_t* __restrict__ m_arr,
+    int64_t num_cands, F32Ops ops, float* __restrict__ out, float* __restrict__ diag_out) {
+  constexpr int kBand = 32 * P;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const pen_tab = reinterpret_cast<float*>(smem);
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  uint8_t* const s_q =
+      smem + kPenTable * sizeof(float) + static_cast<int64_t>(warp) * (2 * lq + kBand);
+  uint8_t* const s_w = s_q + lq;
+  f32_pen_table(ops, pen_tab);
+  const F32x1Ops ops1{ops};
+
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kCandsPerBlock + warp;
+  if (b >= num_cands) return;
+  const int n = n_arr[b];
+  const int m = m_arr[b];
+  warp_stage_gathered(reads + read_id[b] * lq, lq, n, reversed[b] != 0, concat, concat_len,
+                      win_start[b], kBand, s_q, s_w, t);
+
+  const int nx = n < lq ? n : static_cast<int>(lq);
+  const int k0 = P * t;  // the thread's first lane
+  float best[P], ins[P], diag[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    best[p] = k0 + p <= m ? 0.0f : kBig;
+    ins[p] = kBig;
+    diag[p] = 0.0f;
+  }
+  for (int x = 0; x < nx; ++x) {
+    float pen[P];
+    bool live[P];
+    f32_row<P>(pen_tab, s_q[x], s_w + x + k0, m - x - k0, pen, live);
+#pragma unroll
+    for (int p = 0; p < P; ++p) diag[p] = ops.add(diag[p], pen[p]);
+    dp_step_w(ops1, pen, live, best, ins, t);
+  }
+
+  const float r = f32_capture(ops, n, lq, k0, m, best);
+  if (t == 0) out[b] = r;
+  int64_t pick = lane[b];
+  pick = pick < 0 ? 0 : (pick > kBand - 1 ? kBand - 1 : pick);
+  if (pick >= k0 && pick < k0 + P) out[num_cands + b] = diag[pick - k0];
+  if (diag_out != nullptr) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) diag_out[b * kBand + k0 + p] = diag[p];
   }
 }
 
@@ -396,14 +538,73 @@ __global__ void banded_chunk_kernel(
   if (k == 0) out[b] = r;
 }
 
+// banded_chunk_f32 at bands 64 and 128 (band = 32 * P): one warp per
+// candidate, kCandsPerBlock candidates per block, on the float32 warp-level
+// pieces as banded_f32_warp_kernel, staged as banded_chunk_kernel: for each
+// chunk of `chunk` query positions the warp stages that chunk's query codes
+// [chunk] and its window slab [c0, c0 + chunk + band) into its own shared
+// memory, zero past lq and lw, with __syncwarp() between chunks.  The DP
+// state stays in registers across the seam.  Shared memory: the penalty
+// table, then per warp 2 * chunk + band bytes, whatever the read width.
+// What bounds it: as banded_f32_warp_kernel, plus one staging pass a chunk.
+template <int P>
+__global__ void __launch_bounds__(32 * kCandsPerBlock) banded_chunk_f32_warp_kernel(
+    const uint8_t* __restrict__ q, int64_t lq, const uint8_t* __restrict__ w, int64_t lw,
+    const int32_t* __restrict__ n_arr, const int32_t* __restrict__ m_arr, int64_t num_cands,
+    int chunk, F32Ops ops, float* __restrict__ out) {
+  constexpr int kBand = 32 * P;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const pen_tab = reinterpret_cast<float*>(smem);
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  uint8_t* const s_q =
+      smem + kPenTable * sizeof(float) + static_cast<int64_t>(warp) * (2 * chunk + kBand);
+  uint8_t* const s_w = s_q + chunk;
+  f32_pen_table(ops, pen_tab);
+  const F32x1Ops ops1{ops};
+
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kCandsPerBlock + warp;
+  if (b >= num_cands) return;
+  const int n = n_arr[b];
+  const int m = m_arr[b];
+  const uint8_t* const q_row = q + b * lq;
+  const uint8_t* const w_row = w + b * lw;
+  const int nx = n < lq ? n : static_cast<int>(lq);
+  const int k0 = P * t;
+  float best[P], ins[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    best[p] = k0 + p <= m ? 0.0f : kBig;
+    ins[p] = kBig;
+  }
+  for (int c0 = 0; c0 < nx; c0 += chunk) {
+    __syncwarp();  // the previous chunk's readers are done
+    for (int j = t; j < chunk; j += 32) {
+      s_q[j] = static_cast<uint8_t>(c0 + j < lq ? __ldg(q_row + c0 + j) & 15 : 0);
+    }
+    for (int j = t; j < chunk + kBand; j += 32) {
+      s_w[j] = static_cast<uint8_t>(c0 + j < lw ? __ldg(w_row + c0 + j) & 15 : 0);
+    }
+    __syncwarp();
+    const int x_end = c0 + chunk < nx ? c0 + chunk : nx;
+    for (int x = c0; x < x_end; ++x) {
+      float pen[P];
+      bool live[P];
+      f32_row<P>(pen_tab, s_q[x - c0], s_w + (x - c0) + k0, m - x - k0, pen, live);
+      dp_step_w(ops1, pen, live, best, ins, t);
+    }
+  }
+  const float r = f32_capture(ops, n, lq, k0, m, best);
+  if (t == 0) out[b] = r;
+}
+
 template <class Ops>
 int launch(const uint8_t* reads, int64_t lq, const uint8_t* concat, int64_t concat_len,
            const int64_t* read_id, const uint8_t* reversed, const int64_t* win_start,
            const int64_t* lane, const int32_t* n, const int32_t* m, int64_t num_cands,
            int band, Ops ops, float* out, float* diag_out, void* stream) {
   if (num_cands > 0) {
-    const size_t smem = 2 * band * sizeof(typename Ops::T) + static_cast<size_t>(2 * lq + band);
-    banded_kernel<Ops><<<static_cast<unsigned>(num_cands), band, smem,
+    banded_kernel<Ops><<<static_cast<unsigned>(num_cands), band, block_smem(lq, band),
                          static_cast<cudaStream_t>(stream)>>>(
         reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m,
         num_cands, band, ops, out, diag_out);
@@ -420,13 +621,13 @@ extern "C" int mapper_banded_i16(
     int mutation, int amb_unit, int ins_open, int ins_ext, int del_open, int del_ext,
     float inv, float* out, float* diag_out, void* stream) {
   I16Ops ops{mutation, amb_unit, ins_open, ins_ext, del_open, del_ext, inv};
-  if (band != 64 && band != 128) {
+  if (!warp_band(band)) {
     return launch(reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m,
                   num_cands, band, ops, out, diag_out, stream);
   }
   if (num_cands > 0) {
-    const size_t smem = i16_warp_smem(lq, band);
-    const auto grid = static_cast<unsigned>((num_cands + kCandsPerBlock - 1) / kCandsPerBlock);
+    const size_t smem = warp_smem(lq, band, sizeof(int16_t));
+    const auto grid = warp_grid(num_cands);
     const auto s = static_cast<cudaStream_t>(stream);
     if (band == 64) {
       banded_i16_warp_kernel<1><<<grid, 32 * kCandsPerBlock, smem, s>>>(
@@ -449,8 +650,25 @@ extern "C" int mapper_banded_f32(
     float mutation, float ambiguity, float ins_open, float ins_ext, float del_open,
     float del_ext, float* out, float* diag_out, void* stream) {
   F32Ops ops{mutation, ambiguity, ins_open, ins_ext, del_open, del_ext};
-  return launch(reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m,
-                num_cands, band, ops, out, diag_out, stream);
+  if (!warp_band(band)) {
+    return launch(reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m,
+                  num_cands, band, ops, out, diag_out, stream);
+  }
+  if (num_cands > 0) {
+    const size_t smem = warp_smem(lq, band, sizeof(float));
+    const auto grid = warp_grid(num_cands);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (band == 64) {
+      banded_f32_warp_kernel<2><<<grid, 32 * kCandsPerBlock, smem, s>>>(
+          reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m, num_cands,
+          ops, out, diag_out);
+    } else {
+      banded_f32_warp_kernel<4><<<grid, 32 * kCandsPerBlock, smem, s>>>(
+          reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m, num_cands,
+          ops, out, diag_out);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int mapper_banded_i16_packed(
@@ -459,8 +677,7 @@ extern "C" int mapper_banded_i16_packed(
     int del_open, int del_ext, float inv, float* out, float* diag_out, void* stream) {
   if (num_cands > 0) {
     I16Ops ops{mutation, amb_unit, ins_open, ins_ext, del_open, del_ext, inv};
-    const size_t smem = 2 * 2 * kHalf * sizeof(int) + static_cast<size_t>(2 * (2 * lq + kHalf));
-    banded_packed_kernel<<<static_cast<unsigned>((num_cands + 1) / 2), 2 * kHalf, smem,
+    banded_packed_kernel<<<static_cast<unsigned>((num_cands + 1) / 2), 2 * kHalf, packed_smem(lq),
                            static_cast<cudaStream_t>(stream)>>>(
         q, lq, w, lw, n, m, num_cands, ops, out, diag_out);
   }
@@ -473,8 +690,7 @@ extern "C" int mapper_banded_roll_f32(
     float ins_open, float ins_ext, float del_open, float del_ext, float* out, void* stream) {
   if (num_cands > 0) {
     F32Ops ops{mutation, ambiguity, ins_open, ins_ext, del_open, del_ext};
-    const size_t smem = 2 * band * sizeof(float) + static_cast<size_t>(2 * lq + band);
-    banded_roll_kernel<<<static_cast<unsigned>(num_cands), band, smem,
+    banded_roll_kernel<<<static_cast<unsigned>(num_cands), band, block_smem(lq, band),
                          static_cast<cudaStream_t>(stream)>>>(q, lq, w, lw, n, m, band, ops, out);
   }
   return static_cast<int>(cudaGetLastError());
@@ -486,10 +702,22 @@ extern "C" int mapper_banded_chunk_f32(
     float ins_open, float ins_ext, float del_open, float del_ext, float* out, void* stream) {
   if (num_cands > 0) {
     F32Ops ops{mutation, ambiguity, ins_open, ins_ext, del_open, del_ext};
-    const size_t smem = 2 * band * sizeof(float) + static_cast<size_t>(2 * chunk + band);
-    banded_chunk_kernel<<<static_cast<unsigned>(num_cands), band, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        q, lq, w, lw, n, m, band, chunk, ops, out);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (!warp_band(band)) {
+      banded_chunk_kernel<<<static_cast<unsigned>(num_cands), band, block_smem(chunk, band), s>>>(
+          q, lq, w, lw, n, m, band, chunk, ops, out);
+    } else {
+      // a chunk wider than the rows stages the rows: the same single chunk
+      const int span = chunk < lq ? chunk : static_cast<int>(lq);
+      const size_t smem = warp_smem(span, band, sizeof(float));
+      if (band == 64) {
+        banded_chunk_f32_warp_kernel<2><<<warp_grid(num_cands), 32 * kCandsPerBlock, smem, s>>>(
+            q, lq, w, lw, n, m, num_cands, span, ops, out);
+      } else {
+        banded_chunk_f32_warp_kernel<4><<<warp_grid(num_cands), 32 * kCandsPerBlock, smem, s>>>(
+            q, lq, w, lw, n, m, num_cands, span, ops, out);
+      }
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

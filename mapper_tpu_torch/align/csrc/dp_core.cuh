@@ -10,13 +10,13 @@
 //             with the probes' own constants; its min is the plain min, or
 //             the arithmetic min b + (d & (d >> 15)) of benchmarks/probe_i16/d.py.
 //
-// Two sets of pieces run that step.  The block-level ones (K2-K5, and K1 at
-// bands other than 64 and 128) hold one lane a thread and exchange through
-// two ping-pong shared-memory buffers (buffer p is bufs + p * slots), one
-// barrier per exchange: `t` is the thread's slot, `sub` its lane within its
-// candidate's `width` lanes, so no shift or Kogge-Stone step crosses into
-// another candidate.  The warp-level ones (K1 at bands 64 and 128, and the
-// probes' row bodies) are below, after final_lane.
+// Two sets of pieces run that step.  The block-level ones (K3, K5, and K1, K2
+// and K4 at bands other than 64 and 128) hold one lane a thread and exchange
+// through two ping-pong shared-memory buffers (buffer p is bufs + p * slots),
+// one barrier per exchange: `t` is the thread's slot, `sub` its lane within
+// its candidate's `width` lanes, so no shift or Kogge-Stone step crosses into
+// another candidate.  The warp-level ones (K1, K2 and K4 at bands 64 and 128,
+// and the probes' row bodies) are below, after final_lane.
 
 #pragma once
 
@@ -188,14 +188,22 @@ __device__ __forceinline__ typename Ops::T final_lane(const Ops& ops, int n, int
 }
 
 // ---------------------------------------------------------------------------
-// Warp-level pieces.  One warp holds one band of 64 * P lanes: thread t holds
-// lanes [2P t, 2P t + 2P) in P registers of two int16 each (s16x2: lane
-// 2(P t + p) in the low half of register p, the next lane in its high half).
+// Warp-level pieces.  One warp holds one band, thread t a run of consecutive
+// lanes in P registers, in one of two layouts:
+// - int16, 64 * P lanes: thread t holds lanes [2P t, 2P t + 2P) in P
+//   registers of two int16 each (s16x2: lane 2(P t + p) in the low half of
+//   register p, the next lane in its high half);
+// - float32, 32 * P lanes: thread t holds lanes [P t, P t + P), lane P t + p
+//   in register p.  This blocked layout keeps a shift by fewer than P lanes
+//   mostly inside the thread: at band 128 a step takes 25 shuffles, against
+//   28 for lanes strided over the threads.
 // Every exchange is a register shuffle inside the warp plus in-thread moves,
 // so no piece has a barrier.  The order of the operations, the Kogge-Stone
-// strides and the clamps are those of the block-level pieces above.
+// strides and the clamps are those of the block-level pieces above, so each
+// lane computes the same expression as there, bit for bit.
 //
-// A packed Ops struct fixes the arithmetic on s16x2 registers:
+// An Ops struct fixes the arithmetic on the registers; kRegLanes is the
+// lanes a register holds:
 //   I16x2Ops       the scorers' int16 units with Hopper's DPX instruction
 //                  __viaddmin_s16x2 (min(a + b, c) per half, one
 //                  instruction) and the SIMD min __vmins2.  Exact because
@@ -206,7 +214,17 @@ __device__ __forceinline__ typename Ops::T final_lane(const Ops& ops, int n, int
 //                  in [0, INF16] and every unit in [0, 255];
 //   ProbeOps2<A>   the probes' int16 arithmetic that wraps modulo 2^16, per
 //                  half (__vadd2 wraps); with A, the arithmetic min of
-//                  ProbeOps<true>, half by half.
+//                  ProbeOps<true>, half by half;
+//   F32x1Ops       F32Ops's expressions on one float lane a register:
+//                  every add __fadd_rn, step_ext __fmul_rn(f32(S), del_ext),
+//                  no clamp; its min is fminf (one FMNMX, where vmin takes
+//                  a compare and a select), which equals vmin unless an
+//                  operand is NaN or the two are +0 and -0.  No state is
+//                  either with finite penalties: every state starts at +0
+//                  or kBig and is a sum with a state as one operand, and a
+//                  sum is -0 only when both operands are.
+// A lane mask is a per-half uint32_t for the int16 layout, a bool per
+// register for the float32 one.
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -225,8 +243,11 @@ __device__ __forceinline__ uint32_t mask2(bool lo, bool hi) {
 __device__ __forceinline__ uint32_t select2(uint32_t mask, uint32_t a, uint32_t b) {
   return (a & mask) | (b & ~mask);
 }
+// the float32 layout's select: one lane, one bool
+__device__ __forceinline__ float select2(bool mask, float a, float b) { return mask ? a : b; }
 
 struct I16x2Ops {
+  static constexpr int kRegLanes = 2;
   uint32_t ins_open, ins_ext, del_open;  // each unit in both halves
   int del_ext;
 
@@ -255,6 +276,7 @@ struct I16x2Ops {
 
 template <bool kArithMin>
 struct ProbeOps2 {
+  static constexpr int kRegLanes = 2;
   ProbeOps<kArithMin> s;
 
   __device__ __forceinline__ uint32_t inf() const { return splat2(kInf16); }
@@ -280,6 +302,23 @@ struct ProbeOps2 {
   }
   __device__ __forceinline__ uint32_t step_ext(int step) const { return splat2(s.step_ext(step)); }
   __device__ __forceinline__ uint32_t del_open2() const { return splat2(s.del_open); }
+};
+
+struct F32x1Ops {
+  static constexpr int kRegLanes = 1;
+  F32Ops s;
+
+  __device__ __forceinline__ float inf() const { return kBig; }
+  __device__ __forceinline__ float min(float a, float b) const { return fminf(a, b); }
+  __device__ __forceinline__ float add_sat(float a, float b) const { return __fadd_rn(a, b); }
+  __device__ __forceinline__ float ins_cand(float best, float ins) const {
+    return min(__fadd_rn(ins, s.ins_ext), __fadd_rn(best, s.ins_open));
+  }
+  __device__ __forceinline__ float chain_ext(float chain, float moved, float ext) const {
+    return min(chain, __fadd_rn(moved, ext));
+  }
+  __device__ __forceinline__ float step_ext(int step) const { return s.step_ext(step); }
+  __device__ __forceinline__ float del_open2() const { return s.del_open; }
 };
 
 // Lane k takes lane k - S, `fill` below lane 0 (S = 1, or S even).  `t` is
@@ -315,54 +354,90 @@ __device__ __forceinline__ void warp_shift_down1(const uint32_t (&v)[P], uint32_
   for (int p = 0; p < P; ++p) out[p] = __byte_perm(v[p], p + 1 < P ? v[p + 1] : carry, 0x5432);
 }
 
-// dp_diag: live ? sat(best + pen) : inf, `live` a per-half mask.
-template <class Ops, int P>
-__device__ __forceinline__ void dp_diag_w(const Ops& ops, const uint32_t (&best)[P],
-                                          const uint32_t (&pen)[P], const uint32_t (&live)[P],
-                                          uint32_t (&out)[P]) {
+// The float32 layout's shifts.  Lane k takes lane k - S, `fill` below lane
+// 0: for S < P, register p takes register p - S of its own thread, or
+// register p - S + P of the thread below; for S >= P (S and P powers of two,
+// so S / P threads exactly), register p of the thread S / P below.
+template <int S, int P>
+__device__ __forceinline__ void warp_shift_up(const float (&v)[P], float (&out)[P], float fill,
+                                              int t) {
+  if constexpr (S < P) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int src = p >= S ? p - S : p - S + P;
+      if (p >= S) {
+        out[p] = v[src];
+      } else {
+        const float got = __shfl_up_sync(kFullMask, v[src], 1);
+        out[p] = t >= 1 ? got : fill;
+      }
+    }
+  } else {
+    static_assert(S % P == 0, "a shift of P lanes or more moves whole threads");
+    constexpr int kThreads = S / P;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float got = __shfl_up_sync(kFullMask, v[p], kThreads);
+      out[p] = t >= kThreads ? got : fill;
+    }
+  }
+}
+
+// Lane k takes lane k + 1, `fill` in the top lane.
+template <int P>
+__device__ __forceinline__ void warp_shift_down1(const float (&v)[P], float (&out)[P], float fill,
+                                                 int t) {
+  float carry = __shfl_down_sync(kFullMask, v[0], 1);
+  if (t == 31) carry = fill;
+#pragma unroll
+  for (int p = 0; p < P; ++p) out[p] = p + 1 < P ? v[p + 1] : carry;
+}
+
+// dp_diag: live ? sat(best + pen) : inf, `live` a lane mask.
+template <class Ops, class R, class M, int P>
+__device__ __forceinline__ void dp_diag_w(const Ops& ops, const R (&best)[P], const R (&pen)[P],
+                                          const M (&live)[P], R (&out)[P]) {
 #pragma unroll
   for (int p = 0; p < P; ++p) out[p] = select2(live[p], ops.add_sat(best[p], pen[p]), ops.inf());
 }
 
 // dp_ins_shift of an active row.
-template <class Ops, int P>
-__device__ __forceinline__ void dp_ins_shift_w(const Ops& ops, const uint32_t (&best)[P],
-                                               const uint32_t (&ins)[P], uint32_t (&out)[P],
-                                               int t) {
-  uint32_t cand[P];
+template <class Ops, class R, int P>
+__device__ __forceinline__ void dp_ins_shift_w(const Ops& ops, const R (&best)[P],
+                                               const R (&ins)[P], R (&out)[P], int t) {
+  R cand[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) cand[p] = ops.ins_cand(best[p], ins[p]);
   warp_shift_down1<P>(cand, out, ops.inf(), t);
 }
 
 // dp_chain_open.
-template <class Ops, int P>
-__device__ __forceinline__ void dp_chain_open_w(const Ops& ops, const uint32_t (&best_after)[P],
-                                                uint32_t (&out)[P], int t) {
+template <class Ops, class R, int P>
+__device__ __forceinline__ void dp_chain_open_w(const Ops& ops, const R (&best_after)[P],
+                                                R (&out)[P], int t) {
   warp_shift_up<1, P>(best_after, out, ops.inf(), t);
 #pragma unroll
   for (int p = 0; p < P; ++p) out[p] = ops.add_sat(out[p], ops.del_open2());
 }
 
 // dp_ks_scan: the rounds at strides S, 2S, ... below the band.
-template <class Ops, int P, int S = 1>
-__device__ __forceinline__ void dp_ks_scan_w(const Ops& ops, uint32_t (&chain)[P], int t) {
-  if constexpr (S < 64 * P) {
-    uint32_t moved[P];
+template <class Ops, int P, int S = 1, class R>
+__device__ __forceinline__ void dp_ks_scan_w(const Ops& ops, R (&chain)[P], int t) {
+  if constexpr (S < 32 * Ops::kRegLanes * P) {
+    R moved[P];
     warp_shift_up<S, P>(chain, moved, ops.inf(), t);
-    const uint32_t ext = ops.step_ext(S);
+    const R ext = ops.step_ext(S);
 #pragma unroll
     for (int p = 0; p < P; ++p) chain[p] = ops.chain_ext(chain[p], moved[p], ext);
     dp_ks_scan_w<Ops, P, 2 * S>(ops, chain, t);
   }
 }
 
-// dp_step of an active row: `live` is the per-half mask of w_valid.
-template <class Ops, int P>
-__device__ __forceinline__ void dp_step_w(const Ops& ops, const uint32_t (&pen)[P],
-                                          const uint32_t (&live)[P], uint32_t (&best)[P],
-                                          uint32_t (&ins)[P], int t) {
-  uint32_t diag_new[P], ins_new[P], best_after[P], chain[P];
+// dp_step of an active row: `live` is the lane mask of w_valid.
+template <class Ops, class R, class M, int P>
+__device__ __forceinline__ void dp_step_w(const Ops& ops, const R (&pen)[P], const M (&live)[P],
+                                          R (&best)[P], R (&ins)[P], int t) {
+  R diag_new[P], ins_new[P], best_after[P], chain[P];
   dp_diag_w(ops, best, pen, live, diag_new);
   dp_ins_shift_w(ops, best, ins, ins_new, t);
 #pragma unroll
@@ -380,5 +455,14 @@ __device__ __forceinline__ void dp_step_w(const Ops& ops, const uint32_t (&pen)[
 // The min over the warp's lanes of a value each thread has already reduced
 // over its own lanes (capture's warp-level counterpart).
 __device__ __forceinline__ int warp_min(int v) { return __reduce_min_sync(kFullMask, v); }
+// __reduce_min_sync takes integers: a float's is an xor-shuffle tree (a
+// min is exact in any order)
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    v = vmin(v, __shfl_xor_sync(kFullMask, v, offset));
+  }
+  return v;
+}
 
 }  // namespace dp

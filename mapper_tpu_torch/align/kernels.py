@@ -10,13 +10,15 @@ compiler's message.
 
 Three kinds of entry:
 - `banded_i16` and `banded_f32` score candidates against a reference held on
-  the device (reads, reference and per-candidate indices); `banded_i16`
-  runs one warp a candidate at bands 64 and 128, one block elsewhere;
+  the device (reads, reference and per-candidate indices);
 - `banded_i16_packed`, `banded_roll_f32` and `banded_chunk_f32` score
   host-built rows: query codes q [B, LQ] and windows w [B, LW >= LQ + band],
   uint8, with lengths n and m;
 - `probe_i16` runs one body of the int16 probe kernels (P1-P9) on an int16
   [rows, lanes] block, lanes 64, 128 or 256.
+`banded_i16`, `banded_f32` and `banded_chunk_f32` run one warp a candidate at
+the bands of `WARP_BANDS`, one block a candidate elsewhere; the packed and the
+roll kernel always run one block.
 
 Each wrapper checks its tensors, allocates its outputs with `torch.empty`,
 launches on the current CUDA stream, raises if the launch reported an error,
@@ -55,8 +57,12 @@ LAUNCHES = {
     **{f"probe_i16_{stage}": 0 for stage in PROBE_STAGES},
 }
 PACKED_BAND = 64  # banded_i16_packed's per-candidate band (kHalf in the source)
-WARP_BANDS = (64, 128)  # bands banded_i16 runs one warp per candidate at
-_CANDS_PER_BLOCK = 4  # banded_i16's candidates a block at WARP_BANDS (kCandsPerBlock)
+# the bands banded_i16, banded_f32 and banded_chunk_f32 run one warp per
+# candidate at (warp_band in the source)
+WARP_BANDS = (64, 128)
+_CANDS_PER_BLOCK = 4  # the warp kernels' candidates a block (kCandsPerBlock)
+_PEN_TABLE = 16 * 16  # the warp kernels' penalty table entries (kPenTable)
+_PEN_ENTRY_BYTES = {"banded_i16": 2, "banded_f32": 4, "banded_chunk_f32": 4}
 PROBE_LANES = (64, 128, 256)  # the lane counts the probe kernel takes
 _SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block takes without opting in
 
@@ -199,12 +205,40 @@ def _check_band(band):
         raise ValueError(f"band {band} outside [1, 1024]")
 
 
+def _block_smem(width: int, band: int) -> int:
+    """A block kernel's dynamic shared memory (`block_smem` in the source):
+    two ping-pong buffers of `band` 4-byte values, the query codes [width]
+    and the window [width + band]."""
+    return 2 * band * 4 + 2 * width + band
+
+
+def _warp_smem(width: int, band: int, entry: int) -> int:
+    """A warp kernel's (`warp_smem`): the penalty table of `entry`-byte
+    values, then per warp its query codes [width] and window [width + band]."""
+    return _PEN_TABLE * entry + _CANDS_PER_BLOCK * (2 * width + band)
+
+
+def smem_bytes(name: str, lq: int, band: int, chunk: int | None = None) -> int:
+    """The dynamic shared memory a launch of scorer `name` takes at read
+    width `lq` (and `chunk`, for banded_chunk_f32): the sum its launcher in
+    `banded_dp.cu` passes.  banded_chunk_f32's warp kernel stages
+    min(chunk, lq) positions at a time: a chunk wider than the rows is one
+    chunk either way."""
+    if name == "banded_i16_packed":  # packed_smem
+        return 2 * 2 * PACKED_BAND * 4 + 2 * (2 * lq + PACKED_BAND)
+    warp = band in WARP_BANDS and name != "banded_roll_f32"
+    width = lq if chunk is None else (min(chunk, lq) if warp else chunk)
+    if warp:
+        return _warp_smem(width, band, _PEN_ENTRY_BYTES[name])
+    return _block_smem(width, band)
+
+
 def _check_smem(smem, lq):
     if smem > _SMEM_LIMIT:
         raise ValueError(f"read width {lq} too large for the kernel's shared memory")
 
 
-def _prepare(reads, concat, read_id, reversed_, win_start, lane, n, m, band, diag_out=None):
+def _prepare(kernel, reads, concat, read_id, reversed_, win_start, lane, n, m, band, diag_out=None):
     device = _cuda_device(reads)
     _check("reads", reads, torch.uint8, 2, device)
     _check("concat", concat, torch.uint8, 1, device)
@@ -220,7 +254,7 @@ def _prepare(reads, concat, read_id, reversed_, win_start, lane, n, m, band, dia
             raise ValueError(f"{name}: {t.shape[0]} rows, expected {b}")
     _check_band(band)
     lq = reads.shape[1]
-    _check_smem(2 * band * 4 + 2 * lq + band, lq)
+    _check_smem(smem_bytes(kernel, lq, band), lq)
     if b >= 2**31:
         raise ValueError(f"{b} candidates exceed one launch")
     if concat.shape[0] == 0 or reads.shape[0] == 0:
@@ -251,12 +285,10 @@ def banded_i16(
     f32(1) / f32(scale)).  Returns [2, B] float32 on the reads' device; a
     float32 [B, band] `diag_out` also receives every diagonal's sum.  At
     bands 64 and 128 (`WARP_BANDS`) one warp scores a candidate; any other
-    band takes the block kernel K2 also runs, one block a candidate."""
+    band takes the block kernel, one block a candidate."""
     out, stream, common = _prepare(
-        reads, concat, read_id, reversed_, win_start, lane, n, m, band, diag_out
+        "banded_i16", reads, concat, read_id, reversed_, win_start, lane, n, m, band, diag_out
     )
-    if band in WARP_BANDS:  # the penalty table, then each warp's row and window
-        _check_smem(2 * 256 + _CANDS_PER_BLOCK * (2 * reads.shape[1] + band), reads.shape[1])
     if out.shape[1] == 0:
         return out
     lib = library()
@@ -274,9 +306,10 @@ def banded_f32(
 ):
     """K2: float32 banded DP (`params6` from `_params_tuple`).  Returns
     [2, B] float32 on the reads' device; a float32 [B, band] `diag_out` also
-    receives every diagonal's sum."""
+    receives every diagonal's sum.  At `WARP_BANDS` one warp scores a
+    candidate, elsewhere one block, bit-identical."""
     out, stream, common = _prepare(
-        reads, concat, read_id, reversed_, win_start, lane, n, m, band, diag_out
+        "banded_f32", reads, concat, read_id, reversed_, win_start, lane, n, m, band, diag_out
     )
     if out.shape[1] == 0:
         return out
@@ -315,8 +348,7 @@ def banded_i16_packed(q, w, n, m, ints, inv: float):
     """K3: the int16-unit DP at band 64, two candidates per block (rows i
     and i + ceil(B / 2)).  Returns (scores [B], diag_sums [B, 64]), float32,
     in penalty units."""
-    lq = q.shape[1]
-    smem = 2 * 2 * PACKED_BAND * 4 + 2 * (2 * lq + PACKED_BAND)
+    smem = smem_bytes("banded_i16_packed", q.shape[1], PACKED_BAND)
     b, stream, rows = _prepare_rows(q, w, n, m, PACKED_BAND, smem)
     scores = torch.empty(b, dtype=torch.float32, device=q.device)
     diag = torch.empty((b, PACKED_BAND), dtype=torch.float32, device=q.device)
@@ -335,8 +367,8 @@ def banded_i16_packed(q, w, n, m, ints, inv: float):
 def banded_roll_f32(q, w, n, m, params6, band: int):
     """K5: float32 banded DP with the penalty computed in the kernel, whole
     rows staged once.  Returns scores [B] float32."""
-    lq = q.shape[1]
-    b, stream, rows = _prepare_rows(q, w, n, m, band, 2 * band * 4 + 2 * lq + band)
+    smem = smem_bytes("banded_roll_f32", q.shape[1], band)
+    b, stream, rows = _prepare_rows(q, w, n, m, band, smem)
     scores = torch.empty(b, dtype=torch.float32, device=q.device)
     if b == 0:
         return scores
@@ -353,10 +385,12 @@ def banded_roll_f32(q, w, n, m, params6, band: int):
 def banded_chunk_f32(q, w, n, m, params6, band: int, chunk: int):
     """K4: K5's function with the rows staged `chunk` query positions at a
     time, so shared memory does not grow with the read width.  Returns
-    scores [B] float32."""
+    scores [B] float32.  At `WARP_BANDS` one warp scores a candidate,
+    elsewhere one block."""
     if chunk < 1:
         raise ValueError(f"chunk {chunk} < 1")
-    b, stream, rows = _prepare_rows(q, w, n, m, band, 2 * band * 4 + 2 * chunk + band)
+    smem = smem_bytes("banded_chunk_f32", q.shape[1], band, chunk)
+    b, stream, rows = _prepare_rows(q, w, n, m, band, smem)
     scores = torch.empty(b, dtype=torch.float32, device=q.device)
     if b == 0:
         return scores

@@ -36,6 +36,19 @@ def _tensors(cands, device):
     return [torch.as_tensor(cands[k]).to(device) for k in _KEYS]
 
 
+def _with_edges(cands, lq):
+    """The cases the warp kernels must take like the block ones: windows at
+    both ends of the reference (one starting before it, clamped), reads
+    longer than the width (n > lq, scored BIG with every diagonal summed),
+    and reversed candidates."""
+    cands = {k: np.array(v) for k, v in cands.items()}
+    end = cands["concat"].shape[0]
+    cands["win_start"][:3] = (0, -5, end - lq // 2)
+    cands["n"][3:5] = lq + 7
+    cands["reversed_"][5:9] = True
+    return cands
+
+
 def _kernel_and_plain(cands, params, band, device):
     args = _tensors(cands, device)
     got = banded.banded_scores_gathered(*args, params, band)
@@ -59,17 +72,28 @@ def test_banded_i16_equals_plain(cuda, band):
     assert (got[0] < 1e8).mean() > 0.5
 
 
-@pytest.mark.parametrize("band,lq,mutation", [(64, 256, np.pi), (128, 1024, 1.0)])
-def test_banded_f32_matches_plain(cuda, band, lq, mutation):
+@pytest.mark.parametrize(
+    "band,lq,mutation,num",
+    [
+        (64, 256, np.pi, 512), (128, 1024, 1.0, 512),
+        # the warp kernel at both its bands, candidate counts that leave the
+        # last block of four partly filled
+        (64, 1024, 1.0, 4 * 127 + 1), (64, 2048, 1.0, 4 * 32 + 3),
+        (128, 256, np.pi, 4 * 127 + 3), (128, 2048, 1.0, 4 * 32 + 1),
+        # the block kernel
+        (32, 256, np.pi, 509), (32, 1024, 1.0, 511), (32, 2048, 1.0, 129),
+    ],
+)
+def test_banded_f32_matches_plain(cuda, band, lq, mutation, num):
+    """Bit for bit: --fmad=false and the reference's operation order, in the
+    warp kernel (bands 64 and 128) as in the block kernel (other bands)."""
     params = AlignmentParameters.defaults(mutation_penalty=mutation)
     assert banded._quantize_params(params, lq, band) is None
-    cands = scoring_candidates(np.random.default_rng(lq), 512, lq, band)
+    cands = _with_edges(scoring_candidates(np.random.default_rng(lq + band), num, lq, band), lq)
     before = kernels.LAUNCHES["banded_f32"]
     got, plain = _kernel_and_plain(cands, params, band, cuda)
     assert kernels.LAUNCHES["banded_f32"] == before + 1
-    # --fmad=false and the reference's operation order: equal in practice;
-    # the stated tolerance is the reference kernel test's
-    np.testing.assert_allclose(got, plain, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got, plain)
     assert (got[0] < 1e8).mean() > 0.5
 
 
@@ -82,16 +106,20 @@ def _host_rows(cands, band, device, chunk=128):
     return banded._host_rows(q, w, n, m, band, chunk)
 
 
-@pytest.mark.parametrize("band,lq", [(64, 192), (128, 192), (128, 1024)])
-def test_diag_out_matches_plain(cuda, band, lq):
+@pytest.mark.parametrize(
+    "band,lq,num",
+    [(64, 192, 256), (128, 192, 256), (128, 1024, 256), (64, 1024, 257), (128, 1024, 255),
+     (32, 1024, 253)],
+)
+def test_diag_out_matches_plain(cuda, band, lq, num):
     """banded_i16 / banded_f32 on host rows fill every diagonal's sum (the
-    1,024-wide rows take f32 at default penalties).  Called directly: at
-    band 64 "pen" takes the packed kernel instead."""
+    1,024-wide rows take f32 at default penalties), exactly.  Called
+    directly: at band 64 "pen" takes the packed kernel instead."""
     params = AlignmentParameters.defaults()
-    cands = scoring_candidates(np.random.default_rng(band + lq), 256, lq, band)
+    cands = _with_edges(scoring_candidates(np.random.default_rng(band + lq), num, lq, band), lq)
     rows = _host_rows(cands, band, cuda)
     quant = banded._quantize_params(params, rows[0].shape[1], band)
-    got_d = torch.empty((256, band), dtype=torch.float32, device=cuda)
+    got_d = torch.empty((num, band), dtype=torch.float32, device=cuda)
     before = dict(kernels.LAUNCHES)
     if quant is None:
         name = "banded_f32"
@@ -111,10 +139,8 @@ def test_diag_out_matches_plain(cuda, band, lq):
     torch.cuda.synchronize()
     assert name == ("banded_f32" if lq == 1024 else "banded_i16")
     assert kernels.LAUNCHES[name] == before[name] + 1
-    np.testing.assert_allclose(got_s.cpu().numpy(), want_s.numpy(), rtol=0, atol=1e-5)
-    np.testing.assert_allclose(got_d.cpu().numpy(), want_d.numpy(), rtol=0, atol=1e-5)
-    if name == "banded_i16":
-        assert torch.equal(got_s.cpu(), want_s) and torch.equal(got_d.cpu(), want_d)
+    np.testing.assert_array_equal(got_s.cpu().numpy(), want_s.numpy())
+    np.testing.assert_array_equal(got_d.cpu().numpy(), want_d.numpy())
 
 
 @pytest.mark.parametrize("num", [2047, 2048])
@@ -141,30 +167,58 @@ def test_banded_i16_packed_equals_plain(cuda, num):
 
 
 @pytest.mark.parametrize("variant,name", [("roll", "banded_roll_f32"), ("chunk", "banded_chunk_f32")])
-@pytest.mark.parametrize("lq,chunk", [(1024, 128), (200, 64)])
-def test_roll_and_chunk_match_plain(cuda, variant, name, lq, chunk):
+@pytest.mark.parametrize("band", [64, 128])
+@pytest.mark.parametrize("lq,chunk,num", [(1024, 128, 512), (200, 64, 512), (1024, 128, 509)])
+def test_roll_and_chunk_match_plain(cuda, variant, name, band, lq, chunk, num):
+    """Exactly: "chunk" runs the warp kernel at bands 64 and 128, "roll" the
+    block kernel."""
     params = AlignmentParameters.defaults()
-    cands = scoring_candidates(np.random.default_rng(lq), 512, lq, 128)
-    rows = _host_rows(cands, 128, cuda, chunk)
+    cands = scoring_candidates(np.random.default_rng(lq + band), num, lq, band)
+    rows = _host_rows(cands, band, cuda, chunk)
     before = kernels.LAUNCHES[name]
-    got = banded.banded_scores(*rows, params, band=128, chunk=chunk, variant=variant)
+    got = banded.banded_scores(*rows, params, band=band, chunk=chunk, variant=variant)
     assert kernels.LAUNCHES[name] == before + 1
-    plain = banded.banded_scores(*[r.cpu() for r in rows], params, band=128, chunk=chunk, variant=variant)
+    plain = banded.banded_scores(*[r.cpu() for r in rows], params, band=band, chunk=chunk, variant=variant)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.cpu().numpy(), plain.numpy())
     assert (got < 1e8).float().mean() > 0.5
 
 
-def test_chunk_kernel_takes_a_ragged_last_chunk(cuda):
-    """Width 200 in chunks of 64: the last chunk is cut short."""
+@pytest.mark.parametrize("band", [32, 64, 128])
+@pytest.mark.parametrize("chunk", [64, 1, 256])
+def test_chunk_kernel_takes_a_ragged_last_chunk(cuda, band, chunk):
+    """Width 200 in chunks of 64 (the last cut short), of 1, and of 256 (one
+    chunk wider than the rows): equal to the roll kernel and to the plain
+    version."""
     params6 = banded._params_tuple(AlignmentParameters.defaults())
-    cands = scoring_candidates(np.random.default_rng(200), 512, 200, 128)
-    q, w, n, m = _host_rows(cands, 128, cuda, chunk=8)
+    cands = scoring_candidates(np.random.default_rng(200 + band), 4 * 127 + 3, 200, band)
+    q, w, n, m = _host_rows(cands, band, cuda, chunk=8)
     assert q.shape[1] == 200
-    got = kernels.banded_chunk_f32(q, w, n, m, params6, 128, 64)
-    want = kernels.banded_roll_f32(q, w, n, m, params6, 128)
+    got = kernels.banded_chunk_f32(q, w, n, m, params6, band, chunk)
+    want = kernels.banded_roll_f32(q, w, n, m, params6, band)
+    plain = banded._pen_core(q.to(torch.int32), w.to(torch.int32), n, m, params6, band)[0]
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert torch.equal(got, want) and torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("band", [64, 128])
+def test_chunk_roll_and_pen_f32_agree(cuda, band):
+    """K4 (warp), K5 (block) and "pen" f32 (K2's warp kernel on the rows)
+    give the same scores bit for bit on the same rows."""
+    params = AlignmentParameters.defaults()
+    cands = scoring_candidates(np.random.default_rng(band), 4 * 64 + 1, 1024, band)
+    rows = _host_rows(cands, band, cuda)
+    assert banded._quantize_params(params, rows[0].shape[1], band) is None
+    before = dict(kernels.LAUNCHES)
+    scores = {
+        variant: banded.banded_scores(*rows, params, band=band, variant=variant)
+        for variant in ("chunk", "roll", "pen")
+    }
+    torch.cuda.synchronize()
+    for name in ("banded_chunk_f32", "banded_roll_f32", "banded_f32"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(scores["chunk"], scores["roll"]) and torch.equal(scores["roll"], scores["pen"])
+    assert (scores["pen"] < 1e8).float().mean() > 0.5
 
 
 def test_host_row_wrappers_skip_an_empty_batch(cuda):
