@@ -12,9 +12,11 @@ Phases (each raises on failure; nothing is caught):
    bands 64 and 128, 16,384 candidates; banded_f32 at width 1024, bands 64
    and 128 (both instantiations of its warp kernel), 4,096 candidates;
    banded_i16_packed on the host-window rows of width 192 (256 padded) at
-   band 64, timed in turns against banded_i16 on the same rows;
-   banded_roll_f32 and banded_chunk_f32 (chunk 128) on the rows of width
-   1024 at band 128, timed in turns with each other (A B B A);
+   band 64, timed in turns against banded_i16 on the same rows (the pair
+   behind `banded_scores`' band-64 route); banded_roll_f32 and
+   banded_chunk_f32 (chunk 128) on the rows of width 1024 at bands 64 and
+   128, timed in turns with each other (A B B A), and banded_roll_f32's
+   block kernel once at band 32;
    the probe kernels P1-P9: all 40 bodies on the probes' own [64, 128]
    input, on a seeded one over the whole int16 range and at [16384, 128]
    (one row per candidate of the 150 bp phase), each exactly equal to its
@@ -32,12 +34,12 @@ Phases (each raises on failure; nothing is caught):
 4. the host-window path: `banded_scores` on rows gathered on the card
    (`banded._gather_codes`) from candidates over a 4.6 Mb reference, with
    the launch counts read around it: "pen" at width 192 (band 64 through
-   banded_i16_packed, band 128 through banded_i16) and 1024 (band 128, f32),
-   "roll" and "chunk" at width 1024.  All five kernels must launch; "pen"
-   scores and diagonal sums at each lane must equal `banded_scores_gathered`
-   on the same candidates exactly, the packed band-64 run must equal
-   banded_i16 on the same rows exactly, and "roll", "chunk" and "pen" must
-   give the same f32 scores bit for bit;
+   banded_i16_packed, band 128 through banded_i16) and 1024 (bands 64 and
+   128, f32), "roll" and "chunk" at width 1024, band 128.  All five kernels
+   must launch; "pen" scores and diagonal sums at each lane must equal
+   `banded_scores_gathered` on the same candidates exactly, the packed
+   band-64 run must equal banded_i16 on the same rows exactly, and "roll",
+   "chunk" and "pen" f32 scores must equal the plain version's bit for bit;
 5. run the CLI (`mapper_tpu_torch.cli.main`) on a simulated 4.6 Mb
    reference, the size of E. coli K-12: 100,000 single-end 150 bp reads
    (1% SNPs, a 1-3 bp indel in 10% of reads, half reverse-complemented) and
@@ -98,7 +100,9 @@ REPLACES = {
 _KEYS = ("reads", "concat", "read_id", "reversed_", "win_start", "lane", "n", "m")
 CHUNK = 128
 # (read width, band) -> (candidates, seed) of the host-window path
-HOST_WINDOW_SHAPES = {(192, 64): (16384, 64), (192, 128): (16384, 128), (1024, 128): (4096, 7)}
+HOST_WINDOW_SHAPES = {
+    (192, 64): (16384, 64), (192, 128): (16384, 128), (1024, 64): (4096, 7), (1024, 128): (4096, 7),
+}
 PROBE_ROWS = 16384  # the probes' timing block: one row per candidate of the 150 bp phase
 PROBE_TURN_CALLS = 50  # calls a replay, when a probe body is timed in turns with its library call
 
@@ -275,15 +279,31 @@ def _report(name, shape, err, ms, plain_ms, cells, bound_ms, bound_by):
     )
 
 
-def compare_host_row_kernels(params, inputs) -> dict:
+def in_turns(calls: dict) -> dict:
+    """Each call's CUDA-event times (`cuda_ms`, 20 calls a reading), read in
+    turns, forward then back (A B B A): {name: [readings]}."""
+    times = {name: [] for name in calls}
+    for name in [*calls, *reversed(calls)]:
+        times[name].append(cuda_ms(calls[name], 20))
+    return times
+
+
+def compare_host_row_kernels(params, inputs) -> tuple[dict, dict, object]:
     """K3, K4 and K5 against their plain versions on the card, at the
-    host-window path's shapes: {name: (max |difference|, kernel ms, plain ms,
-    bound ms, what bounds it)}."""
+    host-window path's shapes: K3 on the band-64 rows of width 192 (256
+    padded), timed in turns with banded_i16 on the same candidates (the
+    route `banded_scores` takes at band 64 follows this pair); K4 and K5 on
+    the rows of width 1024 at bands 64 and 128, timed in turns with each
+    other; the block K5 at band 32 (outside WARP_BANDS) on the band-64 rows.
+    Returns ({name: (max |difference|, kernel ms, plain ms, bound ms, what
+    bounds it)} at the main shapes (K4 and K5 at band 128), {name: extra
+    keys of its kernels entry}, the plain f32 scores of the width-1024,
+    band-128 rows)."""
     import torch
 
     from mapper_tpu_torch.align import banded, kernels
 
-    results = {}
+    results, extra = {}, {}
     q, w, n, m = inputs[(192, 64)][1]
     quant = banded._quantize_params(params, q.shape[1], 64)
     if quant is None:
@@ -302,74 +322,101 @@ def compare_host_row_kernels(params, inputs) -> dict:
     err = max(float((g - p).abs().max()) for g, p in zip(got, want))
     if not all(torch.equal(g, p) for g, p in zip(got, want)):
         raise AssertionError(f"banded_i16_packed: kernel != plain (max error {err})")
-    cells = cells_of(n, q.shape[1], 64)
-    results["banded_i16_packed"] = (
-        err, cuda_ms(packed, 20), cuda_ms(packed_plain, 2),
-        *bound(cells, "i16", nbytes(q, w, n, m, *got)),
-    )
-    _report("banded_i16_packed", f"lq={q.shape[1]} band=64 B={q.shape[0]}", *results["banded_i16_packed"][:3],
-            cells, *results["banded_i16_packed"][3:])
 
     # band 64 on the same candidates, timed in turns (A B C C B A): banded_i16
     # on the gathered path, banded_i16 on the host rows, banded_i16_packed
     args = inputs[(192, 64)][0]
     rows = banded._rows_as_candidates(q, w, n, m)
-    turns = {
+    times = in_turns({
         "banded_i16 gathered": lambda: kernels.banded_i16(*args, ints, banded._inv(scale), 64),
         "banded_i16 host rows": lambda: kernels.banded_i16(*rows, ints, banded._inv(scale), 64),
         "banded_i16_packed host rows": packed,
-    }
-    times = {name: [] for name in turns}
-    for name in [*turns, *reversed(turns)]:
-        times[name].append(cuda_ms(turns[name], 20))
+    })
+    mean = {name: sum(t) / len(t) for name, t in times.items()}
     print(f"[kernel] band 64, same {q.shape[0]} candidates, in turns: " + ", ".join(
-        f"{name} {sum(t) / len(t):.4f} ms" for name, t in times.items()
+        f"{name} {mean[name]:.4f} ms" for name in times
     ), flush=True)
-
-    q, w, n, m = inputs[(1024, 128)][1]
-    if banded._quantize_params(params, q.shape[1], 128) is not None:
-        raise AssertionError("the host-window f32 rows quantize at width 1024")
-    params6 = banded._params_tuple(params)
-    qi, wi = q.to(torch.int32), w.to(torch.int32)
-
-    def f32_plain():
-        return banded._pen_core(qi, wi, n, m, params6, 128)[0]
-
-    want = f32_plain()
-    plain_ms = cuda_ms(f32_plain, 1)  # K4's and K5's plain version is one function
-    f32_kernels = {
-        "banded_chunk_f32": lambda: kernels.banded_chunk_f32(q, w, n, m, params6, 128, CHUNK),
-        "banded_roll_f32": lambda: kernels.banded_roll_f32(q, w, n, m, params6, 128),
+    cells = cells_of(n, q.shape[1], 64)
+    results["banded_i16_packed"] = (
+        err, mean["banded_i16_packed host rows"], cuda_ms(packed_plain, 2),
+        *bound(cells, "i16", nbytes(q, w, n, m, *got)),
+    )
+    _report("banded_i16_packed", f"lq={q.shape[1]} band=64 B={q.shape[0]}", *results["banded_i16_packed"][:3],
+            cells, *results["banded_i16_packed"][3:])
+    # banded_scores sends int16 rows at band 64 to banded_i16_packed, chosen
+    # over banded_i16 by these turns (PERF.md)
+    extra["banded_i16_packed"] = {
+        "serves": "banded_scores, variant pen, int16 rows at band 64",
+        "faster_than_banded_i16_on_the_same_rows": mean["banded_i16_packed host rows"] < mean["banded_i16 host rows"],
+        "in_turns_ms": times,
     }
-    errs = {}
-    for name, kernel in f32_kernels.items():
-        got = kernel()
-        torch.cuda.synchronize()
-        errs[name] = float((got - want).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name}: kernel != plain (max error {errs[name]})")
-        if float((got < 1e8).float().mean()) < 0.5:
-            raise AssertionError(f"{name}: fewer than half of the rows scored")
-    # K4 (warp) and K5 (block) on the same rows in turns (A B B A): each
-    # kernel's time is the mean of its two readings
-    times = {name: [] for name in f32_kernels}
-    for name in [*f32_kernels, *reversed(f32_kernels)]:
-        times[name].append(cuda_ms(f32_kernels[name], 20))
-    print(f"[kernel] lq={q.shape[1]} band=128, same {q.shape[0]} rows, in turns: " + ", ".join(
-        f"{name} {' '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items()
-    ), flush=True)
-    cells = cells_of(n, q.shape[1], 128)
-    for name, ts in times.items():
-        results[name] = (errs[name], sum(ts) / len(ts), plain_ms,
-                         *bound(cells, "f32", nbytes(q, w, n, m, want)))
-        _report(name, f"lq={q.shape[1]} band=128 B={q.shape[0]}", *results[name][:3], cells, *results[name][3:])
-    return results
+
+    params6 = banded._params_tuple(params)
+    f32_plain = {}
+    by_band = {"banded_chunk_f32": {}, "banded_roll_f32": {}}
+    for band in (64, 128):
+        q, w, n, m = inputs[(1024, band)][1]
+        if banded._quantize_params(params, q.shape[1], band) is not None:
+            raise AssertionError(f"the host-window f32 rows quantize at width 1024, band {band}")
+        qi, wi = q.to(torch.int32), w.to(torch.int32)
+
+        def plain(qi=qi, wi=wi, n=n, m=m, band=band):
+            return banded._pen_core(qi, wi, n, m, params6, band)[0]
+
+        want = f32_plain[band] = plain()
+        plain_ms = cuda_ms(plain, 1)  # K4's and K5's plain version is one function
+        f32_kernels = {
+            "banded_chunk_f32": lambda q=q, w=w, n=n, m=m, band=band: kernels.banded_chunk_f32(
+                q, w, n, m, params6, band, CHUNK),
+            "banded_roll_f32": lambda q=q, w=w, n=n, m=m, band=band: kernels.banded_roll_f32(
+                q, w, n, m, params6, band),
+        }
+        errs = {}
+        for name, kernel in f32_kernels.items():
+            got = kernel()
+            torch.cuda.synchronize()
+            errs[name] = float((got - want).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} band {band}: kernel != plain (max error {errs[name]})")
+            if float((got < 1e8).float().mean()) < 0.5:
+                raise AssertionError(f"{name} band {band}: fewer than half of the rows scored")
+        # K4 and K5 on the same rows in turns (A B B A): each kernel's time
+        # is the mean of its two readings
+        times = in_turns(f32_kernels)
+        print(f"[kernel] lq={q.shape[1]} band={band}, same {q.shape[0]} rows, in turns: " + ", ".join(
+            f"{name} {' '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items()
+        ), flush=True)
+        cells = cells_of(n, q.shape[1], band)
+        for name, ts in times.items():
+            row = (errs[name], sum(ts) / len(ts), plain_ms, *bound(cells, "f32", nbytes(q, w, n, m, want)))
+            by_band[name][band] = {"ms": row[1], "plain_ms": row[2], "bound_ms": row[3], "in_turns_ms": ts}
+            if band == 128:
+                results[name] = row
+            _report(name, f"lq={q.shape[1]} band={band} B={q.shape[0]}", *row[:3], cells, *row[3:])
+
+    # the block K5, at a band outside WARP_BANDS, on the band-64 rows
+    q, w, n, m = inputs[(1024, 64)][1]
+    got = kernels.banded_roll_f32(q, w, n, m, params6, 32)
+    want = banded._pen_core(q.to(torch.int32), w.to(torch.int32), n, m, params6, 32)[0]
+    torch.cuda.synchronize()
+    block_err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"banded_roll_f32 band 32 (block kernel): kernel != plain (max error {block_err})")
+    block_ms = cuda_ms(lambda: kernels.banded_roll_f32(q, w, n, m, params6, 32), 5)
+    print(f"[kernel] banded_roll_f32 lq={q.shape[1]} band=32 (block kernel) B={q.shape[0]}: "
+          f"max_abs_err={block_err} kernel {block_ms:.4f} ms, equal to the plain version", flush=True)
+    for name in by_band:
+        extra[name] = {"by_band": by_band[name]}
+    extra["banded_roll_f32"]["block_band_32"] = {"max_abs_err": block_err, "ms": block_ms}
+    return results, extra, f32_plain[128]
 
 
-def host_window_phase(params, inputs, kernels) -> dict:
+def host_window_phase(params, inputs, kernels, f32_plain) -> dict:
     """The host-window path, `banded_scores` in every variant, with the
     launch counts set to 0 just before it and read just after; then its
-    checks.  Returns the launch counts."""
+    checks, "roll", "chunk" and "pen" f32 against `f32_plain`, the plain
+    version's scores of the width-1024, band-128 rows.  Returns the launch
+    counts."""
     import torch
 
     from mapper_tpu_torch.align import banded
@@ -421,9 +468,11 @@ def host_window_phase(params, inputs, kernels) -> dict:
         raise AssertionError("packed band-64 scores or diagonal sums != banded_i16 on the same rows")
     print("[host-window] packed band 64: scores and diagonal sums equal to banded_i16 on the "
           "same rows", flush=True)
-    if not (torch.equal(roll, chunk) and torch.equal(chunk, pen[(1024, 128)][0])):
-        raise AssertionError("roll, chunk and pen f32 scores differ at width 1024")
-    print("[host-window] lq=1024 band=128: roll == chunk == pen f32, bit for bit", flush=True)
+    for variant, scores in (("roll", roll), ("chunk", chunk), ("pen", pen[(1024, 128)][0])):
+        if not torch.equal(scores, f32_plain):
+            raise AssertionError(f"{variant} f32 scores at width 1024 != the plain version")
+    print("[host-window] lq=1024 band=128: roll, chunk and pen f32 equal to the plain version, "
+          "bit for bit", flush=True)
     return launches
 
 
@@ -716,7 +765,7 @@ def _dp_rate(dp_type: str) -> dict:
     return {"bound_ops_per_cell": ops_per_cell, "bound_ops_per_s": ops_per_s}
 
 
-def kernel_entries(i16, f32, host_rows, probe_rows, by_path) -> list[dict]:
+def kernel_entries(i16, f32, host_rows, host_extra, probe_rows, by_path) -> list[dict]:
     """The `kernels` line: one entry per kernel with its own path's launches
     ("launches", the CLI for the engine's kernels, the host-window path for
     K3-K5, the probe entry for P1-P9), its launches in the main path, the
@@ -741,7 +790,8 @@ def kernel_entries(i16, f32, host_rows, probe_rows, by_path) -> list[dict]:
                            band: {"ms": r[1], "plain_ms": r[2], "bound_ms": r[3]}
                            for band, r in zip((64, 128), f32)}}),
         **{name: (KERNEL_SOURCE, REPLACES[name], "host_window", *host_rows[name], None,
-                  {"library": none, **_dp_rate("i16" if name == "banded_i16_packed" else "f32")})
+                  {"library": none, **_dp_rate("i16" if name == "banded_i16_packed" else "f32"),
+                   **host_extra[name]})
            for name in ("banded_i16_packed", "banded_roll_f32", "banded_chunk_f32")},
         **{f"probe_i16_{stage}": (PROBE_SOURCE, site, "probe_i16", *probe_rows[stage][:3], probe_rows[stage][3],
                                   "bytes", probe_rows[stage][4], {
@@ -753,6 +803,7 @@ def kernel_entries(i16, f32, host_rows, probe_rows, by_path) -> list[dict]:
     entries = []
     for name, (source, replaces, path, err, ms, plain_ms, bound_ms, bound_by, library_ms, extra) in rows.items():
         entries.append({
+            **extra,  # first: no extra key replaces one of the line's own
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "path": path, "launches": by_path[path][name],
             "launches_main_path": by_path["main_path"][name],
@@ -762,7 +813,6 @@ def kernel_entries(i16, f32, host_rows, probe_rows, by_path) -> list[dict]:
             # probes: one CUDA-graph replay of 20 calls; the rest: 20 calls
             # issued from Python, each much longer than its issue time
             "timing": "cuda_graph_replay" if path == "probe_i16" else "cuda_events",
-            **extra,
         })
     for entry in entries:
         if entry["launches"] <= 0:
@@ -800,10 +850,10 @@ def main() -> int:
     i16 = [compare_kernel("banded_i16", 192, band, 16384, params, band, device) for band in (64, 128)]
     f32 = [compare_kernel("banded_f32", 1024, band, 4096, params, 7, device) for band in (64, 128)]
     inputs = host_window_inputs(device)
-    host_rows = compare_host_row_kernels(params, inputs)
+    host_rows, host_extra, f32_plain = compare_host_row_kernels(params, inputs)
     probe_rows = compare_probes(device)
     probe_launches = probe_phase(kernels)
-    window_launches = host_window_phase(params, inputs, kernels)
+    window_launches = host_window_phase(params, inputs, kernels, f32_plain)
     del inputs
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -819,7 +869,7 @@ def main() -> int:
         "main_path": main_launches, "cli": cli_launches, "host_window": window_launches,
         "probe_i16": probe_launches, "device_pileup": pileup_launches,
     }
-    entries = kernel_entries(i16, f32, host_rows, probe_rows, by_path)
+    entries = kernel_entries(i16, f32, host_rows, host_extra, probe_rows, by_path)
     print(json.dumps({"kernels": entries}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

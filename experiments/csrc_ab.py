@@ -7,14 +7,17 @@ plain version first.
 
 A_CSRC and B_CSRC are source directories laid out as `csrc/` (for example
 the parent commit's, unpacked with `git archive` into a directory that
-.gitignore lists).  Timed: banded_i16 (K1) at [16384, 192], bands 64 and
-128; banded_i16_packed (K3) on those candidates' band-64 rows;
-banded_roll_f32 (K5) at 4,096 x 1024, band 128 (CUDA events, 20 calls); the
-40 probe bodies at [16384, 128] (CUDA-graph replay of 50 calls).  Needs a
-card and nvcc; builds under `mapper_tpu_torch/_build/`.
+.gitignore lists).  Timed (CUDA events, 20 calls): banded_i16 (K1) at
+[16384, 192], bands 32, 64 and 128; banded_i16_packed (K3) on those
+candidates' band-64 rows; banded_f32 (K2) at 4,096 x 1024, bands 32, 64 and
+128; banded_roll_f32 (K5) and banded_chunk_f32 (K4, chunk 128) on those
+candidates' rows at bands 32, 64 and 128 (band 32 takes the block kernels);
+and (CUDA-graph replay of 50 calls) the 40 probe bodies at [16384, 128].
+Also prints the SASS instruction mix of the x loop (the innermost loop with
+SHFL.UP) of B's warp kernels of K1, K3 and K4/K5.  Needs a card and nvcc;
+builds under `mapper_tpu_torch/_build/`.
 """
 import re
-import subprocess
 import sys
 from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -25,23 +28,22 @@ from mapper_tpu_torch.align.params import AlignmentParameters
 from mapper_tpu_torch.probe_i16 import probes
 from mapper_tpu_torch.simulate import scoring_candidates
 import chip_smoke as cs
+from experiments import sass_loops
 
 dirs = {"A": Path(sys.argv[1]).resolve(), "B": Path(sys.argv[2]).resolve()}
 libs = {key: kernels.library(build_dir=kernels.BUILD_DIR / f"ab_{key}", csrc=d) for key, d in dirs.items()}
 print(cs.gpu_line())
 
 # SASS, function by function
-nvcc = kernels.find_nvcc()
+raw = {key: sass_loops.functions(lib._name) for key, lib in libs.items()}
 sass = {}
-for key, lib in libs.items():
-    text = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", lib._name],
-                          capture_output=True, text=True, check=True).stdout
+for key, parts in raw.items():
     # a kernel in an anonymous namespace, and the symbols it refers to, carry
     # a hash of their file in their names: every run of 8 or more hex digits
     # is left out (the instructions' encodings with them, not their text),
     # and so is the column padding, which follows the longest line
     sass[key] = {}
-    for part in text.split("Function : ")[1:]:
+    for part in parts.values():
         part = "\n".join(" ".join(line.split()) for line in re.sub(r"[0-9a-f]{8,}", "#", part).splitlines())
         sass[key][part.splitlines()[0]] = part
 common = sorted(set(sass["A"]) & set(sass["B"]))
@@ -55,6 +57,13 @@ for name in differ:
     for x, y in pairs[:2]:
         print(f"    A {x[:120]}\n    B {y[:120]}")
 
+
+for name, part in raw["B"].items():
+    if any(k in name for k in ("banded_i16_warp_kernel", "banded_i16_packed_warp_kernel",
+                               "banded_chunk_f32_warp_kernel")):
+        mix = sass_loops.shuffle_loops(part)[0][0]
+        print(f"B x loop SASS of {name}: {sass_loops.mix_line(mix)}", flush=True)
+
 params = AlignmentParameters.defaults()
 
 
@@ -67,7 +76,7 @@ p6 = banded._params_tuple(params)
 calls = {}  # name -> {key: (fn, output, plain output)}, timed with `timers[name]`
 timers = {}
 alive = []  # the tensors whose addresses the calls hold
-for band in (64, 128):
+for band in (32, 64, 128):
     cands = scoring_candidates(np.random.default_rng(band), 16384, 192, band, ref_size=4_600_000, num_reads=4096)
     args = banded._normalize(*[torch.as_tensor(cands[k]).cuda() for k in cs._KEYS])
     scale, ints = banded._quantize_params(params, 192, band)
@@ -94,17 +103,30 @@ for band in (64, 128):
                 *ints64, banded._inv(scale64), o[0].data_ptr(), o[1].data_ptr(), stream()), outs3[key][0], want3)
             for key, lib in libs.items()}
         timers["banded_i16_packed"] = lambda fn: cs.cuda_ms(fn, 20)
-cands = scoring_candidates(np.random.default_rng(7), 4096, 1024, 128, ref_size=4_600_000, num_reads=4096)
-reads, concat, read_id, rev, ws, lane, n, m = banded._normalize(*[torch.as_tensor(cands[k]).cuda() for k in cs._KEYS])
-qg, wg = banded._gather_codes(reads, concat, read_id, rev, ws, n, 128)
-q5, w5, n5, m5 = banded._host_rows(qg, wg, n, m, 128, cs.CHUNK)
-want5 = banded._pen_core(q5.to(torch.int32), w5.to(torch.int32), n5, m5, p6, 128)[0]
-outs5 = {key: torch.empty(4096, device="cuda") for key in libs}
-calls["banded_roll_f32"] = {
-    key: (lambda lib=lib, o=outs5[key]: lib.mapper_banded_roll_f32(
-        q5.data_ptr(), q5.shape[1], w5.data_ptr(), w5.shape[1], n5.data_ptr(), m5.data_ptr(), 4096, 128, *p6,
-        o.data_ptr(), stream()), outs5[key], want5) for key, lib in libs.items()}
-timers["banded_roll_f32"] = lambda fn: cs.cuda_ms(fn, 20)
+for band in (32, 64, 128):
+    cands = scoring_candidates(np.random.default_rng(7), 4096, 1024, band, ref_size=4_600_000, num_reads=4096)
+    args = banded._normalize(*[torch.as_tensor(cands[k]).cuda() for k in cs._KEYS])
+    alive.append(args)
+    want = banded._gathered_core(*args, params, band)
+    reads, concat, read_id, rev, ws, lane, n, m = args
+    ptrs = [reads.data_ptr(), 1024, concat.data_ptr(), concat.shape[0], read_id.data_ptr(), rev.data_ptr(),
+            ws.data_ptr(), lane.data_ptr(), n.data_ptr(), m.data_ptr(), 4096, band]
+    outs = {key: torch.empty((2, 4096), dtype=torch.float32, device="cuda") for key in libs}
+    calls[f"banded_f32 band {band}"] = {
+        key: (lambda lib=lib, out=outs[key], ptrs=ptrs: lib.mapper_banded_f32(
+            *ptrs, *p6, out.data_ptr(), None, stream()), outs[key], want) for key, lib in libs.items()}
+    timers[f"banded_f32 band {band}"] = lambda fn: cs.cuda_ms(fn, 20)
+    qg, wg = banded._gather_codes(reads, concat, read_id, rev, ws, n, band)
+    q5, w5, n5, m5 = banded._host_rows(qg, wg, n, m, band, cs.CHUNK)
+    alive.append((q5, w5, n5, m5))
+    want5 = banded._pen_core(q5.to(torch.int32), w5.to(torch.int32), n5, m5, p6, band)[0]
+    rows = [q5.data_ptr(), q5.shape[1], w5.data_ptr(), w5.shape[1], n5.data_ptr(), m5.data_ptr(), 4096, band]
+    for name, extra in (("banded_roll_f32", ()), ("banded_chunk_f32", (cs.CHUNK,))):
+        outs5 = {key: torch.empty(4096, device="cuda") for key in libs}
+        calls[f"{name} band {band}"] = {
+            key: (lambda fn=getattr(lib, f"mapper_{name}"), o=outs5[key], rows=rows, extra=extra: fn(
+                *rows, *extra, *p6, o.data_ptr(), stream()), outs5[key], want5) for key, lib in libs.items()}
+        timers[f"{name} band {band}"] = lambda fn: cs.cuda_ms(fn, 20)
 x = torch.from_numpy(np.random.default_rng(0).integers(-2**15, 2**15, (16384, probes.B)).astype(np.int16)).cuda()
 for stage, bodies in probes.STAGES.items():
     for i, body in enumerate(bodies):

@@ -14,8 +14,6 @@ operand is NaN and no tie is between +0 and -0.
 Needs a card and nvcc; builds each variant from a patched copy of
 `mapper_tpu_torch/align/csrc/` under `mapper_tpu_torch/_build/`.
 """
-import collections
-import re
 import shutil
 import subprocess
 import sys
@@ -28,6 +26,7 @@ from mapper_tpu_torch.align import banded, kernels
 from mapper_tpu_torch.align.params import AlignmentParameters
 from mapper_tpu_torch.simulate import scoring_candidates
 import chip_smoke as cs
+from experiments import sass_loops
 
 MIN_FMINF = "  __device__ __forceinline__ float min(float a, float b) const { return fminf(a, b); }"
 VARIANTS = {
@@ -36,30 +35,14 @@ VARIANTS = {
 }
 
 
-def sass_mix(csrc: Path, kernel: str) -> tuple[collections.Counter, collections.Counter]:
-    """The SASS instruction mix of `kernel`, whole and in its x loop: the
-    span of the backward branch whose body holds the SHFL.UP instructions
-    (the one loop with shuffles; the warp min after it uses SHFL.BFLY)."""
+def sass_mix(csrc: Path, kernel: str):
+    """The SASS instruction mix of `kernel`, whole and in its x loop."""
     nvcc = kernels.find_nvcc()
     cubin = csrc / "banded_dp.cubin"
     flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
     subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin), str(csrc / "banded_dp.cu")], check=True)
-    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
-                          capture_output=True, text=True, check=True).stdout
-    mix, loop = collections.Counter(), collections.Counter()
-    for part in sass.split("Function : ")[1:]:
-        if kernel not in part.splitlines()[0]:
-            continue
-        ins = [(int(a, 16), op.split(".")[0], line) for line in part.splitlines()
-               for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)]
-        mix.update(op for _, op, _ in ins)
-        for addr, op, line in ins:
-            target = re.search(r"BRA\s+(?:\S+\s+)?0x([0-9a-f]+)", line) if op == "BRA" else None
-            if target and int(target.group(1), 16) < addr:
-                body = [(a, o, l) for a, o, l in ins if int(target.group(1), 16) <= a <= addr]
-                if any("SHFL.UP" in l for _, _, l in body):
-                    loop.update(o for _, o, _ in body)
-    return mix, loop
+    part = next(text for name, text in sass_loops.functions(cubin).items() if kernel in name)
+    return sass_loops.instruction_mix(part), sass_loops.shuffle_loops(part)[0][0]
 
 
 libs = {}
@@ -76,8 +59,7 @@ for name, patch in VARIANTS.items():
     libs[name] = kernels.library(build_dir=src, csrc=src)
     mix, loop = sass_mix(src, "banded_f32_warp_kernelILi4E")
     for what, counts in (("kernel", mix), ("x loop", loop)):
-        print(f"{name}: SASS of banded_f32_warp_kernel<4>, {what}: {sum(counts.values())} instructions; "
-              + ", ".join(f"{op} {n}" for op, n in counts.most_common()), flush=True)
+        print(f"{name}: SASS of banded_f32_warp_kernel<4>, {what}: {sass_loops.mix_line(counts)}", flush=True)
 
 params = AlignmentParameters.defaults()
 p6 = banded._params_tuple(params)

@@ -17,7 +17,7 @@ Two entry points:
   device (the engine's path);
 - `banded_scores` scores host-built query rows against host-built windows,
   with the variants "pen" (int16 or f32; on the card at band 64 the int16
-  rows are packed two candidates per kernel block), "roll" and "chunk".
+  rows are packed two candidates per warp), "roll" and "chunk".
 
 The plain functions here are the CPU path and the oracle that the CUDA
 kernels (`align/kernels.py`, `align/csrc/banded_dp.cu`) are held against.
@@ -390,11 +390,13 @@ def banded_scores(
     The query width is padded to a multiple of `chunk` and the windows to
     that width + band; the int16/f32 choice is `_quantize_params` at the
     padded width.  variant "pen" returns scores [B] float32 (BIG where no
-    path fits), with (scores, diag_sums [B, band]) when `return_diag_sums`;
-    on the int16 path at band 64 a CUDA tensor takes the packed kernel, two
-    candidates per block, bit-identical to the unpacked one.  "roll" and any
-    other variant ("chunk") return the float32 scores only, through the
-    whole-row and the chunked kernel.  An empty batch launches nothing."""
+    path fits), with (scores, diag_sums [B, band]) when `return_diag_sums`.
+    On the card, int16 rows at band 64 take the packed kernel (two candidates
+    a warp, one in each int16 half), bit-identical to banded_i16 and faster
+    than it on the same rows, timed in turns (PERF.md); other "pen" rows take
+    banded_i16 or banded_f32.  "roll" and any other variant ("chunk") return
+    the float32 scores only, through the whole-row and the chunked kernel.
+    An empty batch launches nothing."""
     device = torch.as_tensor(q_codes).device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"banded_scores: unsupported device {device}")

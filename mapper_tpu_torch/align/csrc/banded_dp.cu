@@ -7,14 +7,13 @@
 //   banded_f32         <- _pen_kernel_x (float32, driven by _pen_core), used
 //                         otherwise (e.g. reads above 512 bp at default
 //                         penalties);
-//   banded_i16_packed  <- _pen_kernel_x_i16_packed (two band-64 candidates per
-//                         block), used in place of banded_i16 for host rows at
-//                         band 64;
+//   banded_i16_packed  <- _pen_kernel_x_i16_packed (two band-64 candidates in
+//                         one register's two halves), on host rows at band 64;
 //   banded_roll_f32    <- _pallas_kernel_roll (whole rows staged once);
 //   banded_chunk_f32   <- _pallas_kernel (rows staged chunk by chunk).
-// All five run the same DP step (dp_core.cuh): banded_i16, banded_f32 and
-// banded_chunk_f32 at bands 64 and 128 through its warp-level pieces, the
-// rest (and those three at other bands) through its block-level ones.
+// All five run the same DP step (dp_core.cuh): banded_i16_packed always, and
+// the other four at bands 64 and 128, through its warp-level pieces; the
+// other four at other bands through its block-level ones.
 //
 // What bounds them on this card: per DP cell the work is a few integer or
 // float adds, mins and selects on data already in registers, and the bytes
@@ -23,18 +22,17 @@
 // each query position of a candidate depends on the previous one, so one
 // candidate's x loop is serial, and the deletion chain inside a row needs
 // log2(band) dependent exchange steps between lanes.
-// What the design does about it: at bands 64 and 128, banded_i16 (the main
-// path's scorer), banded_f32 and banded_chunk_f32 run one warp per
-// candidate, their exchanges register shuffles: banded_i16 with two or four
-// lanes a thread and its arithmetic on two int16 lanes at once (see
-// banded_i16_warp_kernel), the float32 two with two or four float lanes a
-// thread (see banded_f32_warp_kernel).  The others run one block per
-// candidate (per pair for the packed kernel) and one thread per band lane,
-// so the band-wide vector ops of the TPU kernels become per-thread scalar
-// ops and the lane shifts become shared-memory exchanges through two
-// ping-pong buffers (one barrier per exchange); many independent candidates
-// run on each SM (up to 32 blocks of 64 lanes, or 16 of 128) to hide the
-// barrier and shared-memory latency.
+// What the design does about it: at bands 64 and 128 every scorer runs one
+// warp per candidate (banded_i16_packed one warp per pair), its exchanges
+// register shuffles: banded_i16 with two or four lanes a thread and its
+// arithmetic on two int16 lanes at once (see banded_i16_warp_kernel),
+// banded_i16_packed with two lanes of each of its two candidates a thread
+// (see banded_i16_packed_warp_kernel), the float32 three with two or four
+// float lanes a thread (see banded_f32_warp_kernel).  At other bands the
+// four that take a band run one block per candidate and one thread per band
+// lane, so the band-wide vector ops of the TPU kernels become per-thread
+// scalar ops and the lane shifts become shared-memory exchanges through two
+// ping-pong buffers (one barrier per exchange).
 //
 // Bit-parity with the reference: the float path uses __fadd_rn/__fmul_rn/
 // __fdiv_rn so no multiply-add is ever contracted, keeps the Kogge-Stone
@@ -43,7 +41,7 @@
 // x order, in the block and the warp kernels alike.  The int path clamps
 // every sum to INF16 exactly where the reference clamps it, with its int16
 // state in int32 registers (block kernels) or two to a 32-bit register (warp
-// kernel; no sum leaves int16, see I16x2Ops).
+// kernels; no sum leaves int16, see I16x2Ops).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,7 +54,11 @@ using namespace dp;
 
 constexpr int kHalf = 64;  // the packed kernel's per-candidate band
 constexpr int kCandsPerBlock = 4;  // the warp kernels' candidates a block, one warp each
+constexpr int kPairsPerBlock = 8;  // the packed kernel's pairs a block, one warp each
 constexpr int kPenTable = 16 * 16;  // the warp kernels' penalty table: (query, window) code pairs
+// Dynamic shared memory a block takes without opting in, and after (sm_90).
+constexpr size_t kSmemDefault = 48 * 1024;
+constexpr int kSmemOptIn = 232448;
 
 // The bands the warp kernels take (kernels.py's WARP_BANDS); any other band
 // takes a block kernel.
@@ -76,10 +78,26 @@ size_t block_smem(int64_t width, int band) {
 size_t warp_smem(int64_t width, int band, size_t entry) {
   return kPenTable * entry + static_cast<size_t>(kCandsPerBlock * (2 * width + band));
 }
-// The packed kernel: two ping-pong buffers of two halves' ints, then per
-// half the query codes [lq] and the window [lq + kHalf].
-size_t packed_smem(int64_t lq) {
-  return 2 * 2 * kHalf * sizeof(int) + static_cast<size_t>(2 * (2 * lq + kHalf));
+// The packed kernel: the int16 penalty table, then per warp its pair's
+// query codes [lq] and windows [lq + kHalf], the two rows' codes a byte.
+size_t pair_smem(int64_t lq) {
+  return kPenTable * sizeof(int16_t) + static_cast<size_t>(kPairsPerBlock * (2 * lq + kHalf));
+}
+
+// Launches `kernel` on `grid` blocks of `block` threads with `smem` bytes of
+// dynamic shared memory; above 48 KB the kernel opts in first, to the card's
+// most (kernels.py's _SMEM_LIMIT bounds `smem`).  Returns the opt-in's or
+// the launch's CUDA error.
+template <class... Params, class... Args>
+int launch_kernel(void (*kernel)(Params...), unsigned grid, unsigned block, size_t smem,
+                  void* stream, Args... args) {
+  if (smem > kSmemDefault) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 unsigned warp_grid(int64_t num_cands) {
@@ -153,10 +171,10 @@ __global__ void banded_kernel(
   for (int x = 0; x < nx; ++x) {
     const T pen = ops.pen(s_q[x], s_w[x + k]);
     diag = ops.add(diag, pen);
-    dp_step(ops, bufs, band, p, k, k, band, pen, x + k < m, true, best, ins);
+    dp_step(ops, bufs, band, p, k, pen, x + k < m, best, ins);
   }
 
-  const T r = capture(bufs, k, k, band, final_lane(ops, n, lq, k, m, best));
+  const T r = capture(bufs, k, band, final_lane(ops, n, lq, k, m, best));
   if (k == 0) out[b] = ops.score(r);
   int64_t pick = lane[b];
   pick = pick < 0 ? 0 : (pick > band - 1 ? band - 1 : pick);
@@ -398,75 +416,155 @@ __global__ void __launch_bounds__(32 * kCandsPerBlock) banded_f32_warp_kernel(
   }
 }
 
-// banded_i16_packed: two band-64 candidates per block of 128 threads.
-// Block i holds row i in threads [0, 64) and row i + hb in [64, 128), where
-// hb = ceil(B / 2), as the reference's host split pairs them.  With B odd the
-// last block's second half is a pad candidate (n = m = 1, zero codes) whose
-// outputs are dropped.  Every exchange stays inside a half (dp_step's
-// `sub`/`width`), the capture is one min-reduce per half, and the x loop
-// runs to max(nA, nB): a finished half is masked inactive and keeps taking
-// part in every barrier.
-// Shared memory: two ping-pong buffers of 128 ints; per half the query row
-// [lq] and the window [lq + 64].
+// One step of banded_i16_packed_warp_kernel at query position x, both rows'
+// lanes k0 .. k0 + P - 1 of the pair in best/ins (low half row A, high half
+// row B).  s_q[x] holds qA << 4 | qB, s_w[j] wB << 4 | wA, so each row's
+// table index is one bitwise select of the two bytes: (qA, wA) for row A,
+// (wB, qB) for row B, the same penalty since pen(q, w) = pen(w, q).
+// With kSteady, both rows are active and every lane of the warp has its
+// window cell (x + 63 < m of both rows), so no mask is built and no half is
+// kept; otherwise `live` masks the window cells, a half whose row has ended
+// (x >= nX) keeps its best and ins, and its diagonal sums stop.
+template <bool kSteady, int P>
+__device__ __forceinline__ void pair_step(const I16PairOps& ops2, const int16_t* pen_tab,
+                                          const uint8_t* s_q, const uint8_t* s_w,
+                                          const int (&m)[2], const int (&nx)[2], int x, int k0,
+                                          uint32_t (&best)[P], uint32_t (&ins)[P],
+                                          int (&diag)[2][P], int t) {
+  const bool active0 = kSteady || x < nx[0], active1 = kSteady || x < nx[1];
+  const int qq = s_q[x];
+  const int lim0 = m[0] - x - k0, lim1 = m[1] - x - k0;  // lane k0 + p has a window cell iff p < lim
+  uint32_t pen2[P], live[P], step_best[P], step_ins[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int ww = s_w[x + k0 + p];
+    const int pen_a = pen_tab[(qq & 0xf0) | (ww & 0x0f)];
+    const int pen_b = pen_tab[(ww & 0xf0) | (qq & 0x0f)];
+    if (active0) diag[0][p] += pen_a;
+    if (active1) diag[1][p] += pen_b;
+    pen2[p] = pack2(pen_a, pen_b);
+    live[p] = kSteady ? 0xffffffffu : mask2(p < lim0, p < lim1);
+    step_best[p] = best[p];
+    step_ins[p] = ins[p];
+  }
+  dp_step_w(ops2, pen2, live, step_best, step_ins, t);
+  const uint32_t active = mask2(active0, active1);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    best[p] = select2(active, step_best[p], best[p]);
+    ins[p] = select2(active, step_ins[p], ins[p]);
+  }
+}
+
+// banded_i16_packed: the int16 DP at band 64 for two candidates at once, one
+// warp a pair, kPairsPerBlock pairs a block.  Pair i is rows i and i + hb,
+// hb = ceil(B / 2), as the reference's host split pairs them; with B odd the
+// last pair's second row is a pad (n = m = 0, zero codes) whose outputs are
+// dropped.  Thread t holds lanes 2t and 2t + 1 of both rows in two s16x2
+// registers, row i's lane in the low half and row i + hb's in the high half
+// (dp_core's one-lane-a-register layout, I16PairOps): every shift moves whole
+// registers, so a step is 13 shuffles and no byte permute for 128 cells, and
+// the sums and mins are DPX instructions on both rows at once.
+// The x loop runs to max(nA, nB) with nX = min(n, lq).  dp_step_w is the step
+// of an active row, so the step of a half whose row has ended is computed
+// and dropped: best and ins keep that half, and its diagonal sums stop
+// (pair_step).  The steps where both rows are active and every lane has its
+// window cell, most of them, take pair_step's steady form.  Each warp stages
+// its pair's codes, the two rows' 4-bit codes in one byte, in its own shared
+// memory; the penalty table, int16 [16 * 16], is built once a block, as in
+// banded_i16_warp_kernel.  The capture is final_lane per half and one warp
+// min of both halves at once.
 // Output: scores[row] (BIG at or above INF16, else * inv) and the diagonal
-// sums diag_out[row * 64 + sub] (* inv).
-// What bounds it: as above; the pairing halves the block count at band 64
-// and fills 128-thread blocks, at the cost of the longer of the two x loops.
-__global__ void banded_packed_kernel(
+// sums diag_out[row * 64 + k] (int32 in x order, * inv).
+// What bounds it: as banded_i16_warp_kernel, the int16 operations of its
+// cells, with no byte permutes in the shifts; the pairing costs the longer of
+// the two x loops.  The steady form takes the step from 139 SASS
+// instructions to 94 and the kernel from 0.3117 to 0.2363 ms at 16,384 x 192;
+// four pairs a block took 0.2401 ms, eight 0.2365
+// (experiments/k3_pair_variants.py, NVIDIA H100 80GB HBM3, 700 W).
+__global__ void __launch_bounds__(32 * kPairsPerBlock) banded_i16_packed_warp_kernel(
     const uint8_t* __restrict__ q, int64_t lq, const uint8_t* __restrict__ w, int64_t lw,
     const int32_t* __restrict__ n_arr, const int32_t* __restrict__ m_arr,
     int64_t num_cands, I16Ops ops, float* __restrict__ out, float* __restrict__ diag_out) {
+  constexpr int P = kHalf / 32;  // lanes a thread holds of each row
   extern __shared__ __align__(16) unsigned char smem[];
-  int* const bufs = reinterpret_cast<int*>(smem);
-  const int t = threadIdx.x;
-  const int h = t / kHalf;
-  const int sub = t % kHalf;
+  int16_t* const pen_tab = reinterpret_cast<int16_t*>(smem);
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  uint8_t* const s_q =
+      smem + kPenTable * sizeof(int16_t) + static_cast<int64_t>(warp) * (2 * lq + kHalf);
+  uint8_t* const s_w = s_q + lq;
+  for (int i = threadIdx.x; i < kPenTable; i += blockDim.x) {
+    pen_tab[i] = static_cast<int16_t>(ops.pen(i >> 4, i & 15));
+  }
+  __syncthreads();  // the table is the block's; from here on each warp works alone
+
   const int64_t hb = (num_cands + 1) / 2;
-  const int64_t row = blockIdx.x + h * hb;
-  const bool real = row < num_cands;
-  uint8_t* s_q = reinterpret_cast<uint8_t*>(bufs + 2 * 2 * kHalf) + h * (2 * lq + kHalf);
-  uint8_t* s_w = s_q + lq;
-
-  const int n = real ? n_arr[row] : 1;
-  const int m = real ? m_arr[row] : 1;
-  for (int64_t x = sub; x < lq; x += kHalf) s_q[x] = real ? q[row * lq + x] : 0;
-  for (int64_t j = sub; j < lq + kHalf; j += kHalf) s_w[j] = real ? w[row * lw + j] : 0;
-  __syncthreads();
-
-  // the x loop bound is the same for the whole block
-  int x_end = 0;
-  for (int i = 0; i < 2; ++i) {
-    const int64_t row_i = blockIdx.x + i * hb;
-    const int ni = row_i < num_cands ? n_arr[row_i] : 1;
-    const int nxi = ni < lq ? ni : static_cast<int>(lq);
-    x_end = nxi > x_end ? nxi : x_end;
+  const int64_t pair = static_cast<int64_t>(blockIdx.x) * kPairsPerBlock + warp;
+  if (pair >= hb) return;
+  const int64_t row[2] = {pair, pair + hb};
+  const bool real_b = row[1] < num_cands;
+  const int n[2] = {n_arr[row[0]], real_b ? n_arr[row[1]] : 0};
+  const int m[2] = {m_arr[row[0]], real_b ? m_arr[row[1]] : 0};
+  const int nx[2] = {n[0] < lq ? n[0] : static_cast<int>(lq), n[1] < lq ? n[1] : static_cast<int>(lq)};
+  const uint8_t* const q_a = q + row[0] * lq;
+  const uint8_t* const q_b = q + row[1] * lq;
+  const uint8_t* const w_a = w + row[0] * lw;
+  const uint8_t* const w_b = w + row[1] * lw;
+  for (int64_t x = t; x < lq; x += 32) {
+    const int qb = real_b ? __ldg(q_b + x) & 15 : 0;
+    s_q[x] = static_cast<uint8_t>((__ldg(q_a + x) & 15) << 4 | qb);
   }
-  const int nx = n < lq ? n : static_cast<int>(lq);
-  int best = sub <= m ? 0 : kInf16;
-  int ins = kInf16;
-  int diag = 0;
-  int p = 0;
-  for (int x = 0; x < x_end; ++x) {
-    const bool active = x < nx;
-    const int pen = ops.pen(s_q[x], s_w[x + sub]);
-    if (active) diag += pen;
-    dp_step(ops, bufs, 2 * kHalf, p, t, sub, kHalf, pen, x + sub < m, active, best, ins);
+  for (int64_t j = t; j < lq + kHalf; j += 32) {
+    const int wb = real_b ? __ldg(w_b + j) & 15 : 0;
+    s_w[j] = static_cast<uint8_t>(wb << 4 | (__ldg(w_a + j) & 15));
   }
+  __syncwarp();
 
-  const int r = capture(bufs, t, sub, kHalf, final_lane(ops, n, lq, sub, m, best));
-  if (real) {
-    if (sub == 0) out[row] = ops.score(r);
-    diag_out[row * kHalf + sub] = ops.diag(diag);
+  const I16PairOps ops2{I16x2Ops::of(ops)};
+  const int k0 = P * t;  // the thread's first lane
+  uint32_t best[P], ins[P];
+  int diag[2][P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    best[p] = pack2(k0 + p <= m[0] ? 0 : kInf16, k0 + p <= m[1] ? 0 : kInf16);
+    ins[p] = ops2.inf();
+    diag[0][p] = diag[1][p] = 0;
+  }
+  // steady while x < nX and x + kHalf - 1 < m for both rows
+  const int steady0 = nx[0] < m[0] - kHalf + 1 ? nx[0] : m[0] - kHalf + 1;
+  const int steady1 = nx[1] < m[1] - kHalf + 1 ? nx[1] : m[1] - kHalf + 1;
+  const int x_steady = steady0 < steady1 ? steady0 : steady1;
+  const int x_end = nx[0] > nx[1] ? nx[0] : nx[1];
+  int x = 0;
+  for (; x < x_steady; ++x) pair_step<true>(ops2, pen_tab, s_q, s_w, m, nx, x, k0, best, ins, diag, t);
+  for (; x < x_end; ++x) pair_step<false>(ops2, pen_tab, s_q, s_w, m, nx, x, k0, best, ins, diag, t);
+
+  uint32_t fin = ops2.inf();
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    fin = __vmins2(fin, pack2(final_lane(ops, n[0], lq, k0 + p, m[0], lo16(best[p])),
+                              final_lane(ops, n[1], lq, k0 + p, m[1], hi16(best[p]))));
+  }
+  fin = warp_min2(fin);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (h == 1 && !real_b) break;
+    if (t == 0) out[row[h]] = ops.score(half16(fin, h));
+#pragma unroll
+    for (int p = 0; p < P; ++p) diag_out[row[h] * kHalf + k0 + p] = ops.diag(diag[h][p]);
   }
 }
 
 // banded_roll_f32: the f32 banded DP on host-built rows, penalty computed in
 // the kernel from the codes.  Like _pallas_kernel_roll, which carries the
 // whole query and window arrays through its x loop, it stages the whole
-// query row [lq] and its window [lq + band] in shared memory once.
+// query row [lq] and its window [lq + band] in shared memory once.  At
+// bands 64 and 128 that is banded_chunk_f32_warp_kernel with one chunk the
+// width of the row; at other bands this kernel.
 // grid: one block per candidate; block: `band` threads.  Scores only.
-// What bounds it: as above; its shared memory grows with the read length
-// (the wrapper checks the 48 KB bound), which banded_chunk_f32 avoids.
+// What bounds it: as above; its shared memory grows with the read length,
+// which banded_chunk_f32 avoids.
 __global__ void banded_roll_kernel(
     const uint8_t* __restrict__ q, int64_t lq, const uint8_t* __restrict__ w, int64_t lw,
     const int32_t* __restrict__ n_arr, const int32_t* __restrict__ m_arr, int band,
@@ -489,10 +587,9 @@ __global__ void banded_roll_kernel(
   float ins = kBig;
   int p = 0;
   for (int x = 0; x < nx; ++x) {
-    dp_step(ops, bufs, band, p, k, k, band, ops.pen(s_q[x], s_w[x + k]), x + k < m, true,
-            best, ins);
+    dp_step(ops, bufs, band, p, k, ops.pen(s_q[x], s_w[x + k]), x + k < m, best, ins);
   }
-  const float r = capture(bufs, k, k, band, final_lane(ops, n, lq, k, m, best));
+  const float r = capture(bufs, k, band, final_lane(ops, n, lq, k, m, best));
   if (k == 0) out[b] = r;
 }
 
@@ -530,11 +627,11 @@ __global__ void banded_chunk_kernel(
     __syncthreads();
     const int x_end = c0 + chunk < nx ? c0 + chunk : nx;
     for (int x = c0; x < x_end; ++x) {
-      dp_step(ops, bufs, band, p, k, k, band, ops.pen(s_q[x - c0], s_w[x - c0 + k]),
-              x + k < m, true, best, ins);
+      dp_step(ops, bufs, band, p, k, ops.pen(s_q[x - c0], s_w[x - c0 + k]), x + k < m, best,
+              ins);
     }
   }
-  const float r = capture(bufs, k, k, band, final_lane(ops, n, lq, k, m, best));
+  const float r = capture(bufs, k, band, final_lane(ops, n, lq, k, m, best));
   if (k == 0) out[b] = r;
 }
 
@@ -546,6 +643,8 @@ __global__ void banded_chunk_kernel(
 // memory, zero past lq and lw, with __syncwarp() between chunks.  The DP
 // state stays in registers across the seam.  Shared memory: the penalty
 // table, then per warp 2 * chunk + band bytes, whatever the read width.
+// banded_roll_f32 launches it with chunk = lq: the whole row and window
+// staged once, before the x loop, as _pallas_kernel_roll holds them.
 // What bounds it: as banded_f32_warp_kernel, plus one staging pass a chunk.
 template <int P>
 __global__ void __launch_bounds__(32 * kCandsPerBlock) banded_chunk_f32_warp_kernel(
@@ -603,13 +702,20 @@ int launch(const uint8_t* reads, int64_t lq, const uint8_t* concat, int64_t conc
            const int64_t* read_id, const uint8_t* reversed, const int64_t* win_start,
            const int64_t* lane, const int32_t* n, const int32_t* m, int64_t num_cands,
            int band, Ops ops, float* out, float* diag_out, void* stream) {
-  if (num_cands > 0) {
-    banded_kernel<Ops><<<static_cast<unsigned>(num_cands), band, block_smem(lq, band),
-                         static_cast<cudaStream_t>(stream)>>>(
-        reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m,
-        num_cands, band, ops, out, diag_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel(banded_kernel<Ops>, static_cast<unsigned>(num_cands), band,
+                       block_smem(lq, band), stream, reads, lq, concat, concat_len, read_id,
+                       reversed, win_start, lane, n, m, num_cands, band, ops, out, diag_out);
+}
+
+// banded_chunk_f32_warp_kernel at its band, `span` query positions staged at once.
+int launch_rows_f32_warp(const uint8_t* q, int64_t lq, const uint8_t* w, int64_t lw,
+                         const int32_t* n, const int32_t* m, int64_t num_cands, int band,
+                         int span, F32Ops ops, float* out, void* stream) {
+  const auto kernel =
+      band == 64 ? banded_chunk_f32_warp_kernel<2> : banded_chunk_f32_warp_kernel<4>;
+  return launch_kernel(kernel, warp_grid(num_cands), 32 * kCandsPerBlock,
+                       warp_smem(span, band, sizeof(float)), stream, q, lq, w, lw, n, m,
+                       num_cands, span, ops, out);
 }
 
 }  // namespace
@@ -620,28 +726,18 @@ extern "C" int mapper_banded_i16(
     const int64_t* lane, const int32_t* n, const int32_t* m, int64_t num_cands, int band,
     int mutation, int amb_unit, int ins_open, int ins_ext, int del_open, int del_ext,
     float inv, float* out, float* diag_out, void* stream) {
+  if (num_cands == 0) return 0;
   I16Ops ops{mutation, amb_unit, ins_open, ins_ext, del_open, del_ext, inv};
   if (!warp_band(band)) {
     return launch(reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m,
                   num_cands, band, ops, out, diag_out, stream);
   }
-  if (num_cands > 0) {
-    const size_t smem = warp_smem(lq, band, sizeof(int16_t));
-    const auto grid = warp_grid(num_cands);
-    const auto s = static_cast<cudaStream_t>(stream);
-    if (band == 64) {
-      banded_i16_warp_kernel<1><<<grid, 32 * kCandsPerBlock, smem, s>>>(
-          reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m, num_cands,
-          ops, out, diag_out);
-    } else {
-      banded_i16_warp_kernel<2><<<grid, 32 * kCandsPerBlock, smem, s>>>(
-          reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m, num_cands,
-          ops, out, diag_out);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  const auto kernel = band == 64 ? banded_i16_warp_kernel<1> : banded_i16_warp_kernel<2>;
+  return launch_kernel(kernel, warp_grid(num_cands), 32 * kCandsPerBlock,
+                       warp_smem(lq, band, sizeof(int16_t)), stream, reads, lq, concat,
+                       concat_len, read_id, reversed, win_start, lane, n, m, num_cands, ops,
+                       out, diag_out);
 }
-
 
 extern "C" int mapper_banded_f32(
     const uint8_t* reads, int64_t lq, const uint8_t* concat, int64_t concat_len,
@@ -649,75 +745,58 @@ extern "C" int mapper_banded_f32(
     const int64_t* lane, const int32_t* n, const int32_t* m, int64_t num_cands, int band,
     float mutation, float ambiguity, float ins_open, float ins_ext, float del_open,
     float del_ext, float* out, float* diag_out, void* stream) {
+  if (num_cands == 0) return 0;
   F32Ops ops{mutation, ambiguity, ins_open, ins_ext, del_open, del_ext};
   if (!warp_band(band)) {
     return launch(reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m,
                   num_cands, band, ops, out, diag_out, stream);
   }
-  if (num_cands > 0) {
-    const size_t smem = warp_smem(lq, band, sizeof(float));
-    const auto grid = warp_grid(num_cands);
-    const auto s = static_cast<cudaStream_t>(stream);
-    if (band == 64) {
-      banded_f32_warp_kernel<2><<<grid, 32 * kCandsPerBlock, smem, s>>>(
-          reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m, num_cands,
-          ops, out, diag_out);
-    } else {
-      banded_f32_warp_kernel<4><<<grid, 32 * kCandsPerBlock, smem, s>>>(
-          reads, lq, concat, concat_len, read_id, reversed, win_start, lane, n, m, num_cands,
-          ops, out, diag_out);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  const auto kernel = band == 64 ? banded_f32_warp_kernel<2> : banded_f32_warp_kernel<4>;
+  return launch_kernel(kernel, warp_grid(num_cands), 32 * kCandsPerBlock,
+                       warp_smem(lq, band, sizeof(float)), stream, reads, lq, concat,
+                       concat_len, read_id, reversed, win_start, lane, n, m, num_cands, ops,
+                       out, diag_out);
 }
 
 extern "C" int mapper_banded_i16_packed(
     const uint8_t* q, int64_t lq, const uint8_t* w, int64_t lw, const int32_t* n,
     const int32_t* m, int64_t num_cands, int mutation, int amb_unit, int ins_open, int ins_ext,
     int del_open, int del_ext, float inv, float* out, float* diag_out, void* stream) {
-  if (num_cands > 0) {
-    I16Ops ops{mutation, amb_unit, ins_open, ins_ext, del_open, del_ext, inv};
-    banded_packed_kernel<<<static_cast<unsigned>((num_cands + 1) / 2), 2 * kHalf, packed_smem(lq),
-                           static_cast<cudaStream_t>(stream)>>>(
-        q, lq, w, lw, n, m, num_cands, ops, out, diag_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (num_cands == 0) return 0;
+  I16Ops ops{mutation, amb_unit, ins_open, ins_ext, del_open, del_ext, inv};
+  const int64_t pairs = (num_cands + 1) / 2;
+  return launch_kernel(banded_i16_packed_warp_kernel,
+                       static_cast<unsigned>((pairs + kPairsPerBlock - 1) / kPairsPerBlock),
+                       32 * kPairsPerBlock, pair_smem(lq), stream, q, lq, w, lw, n, m, num_cands,
+                       ops, out, diag_out);
 }
 
 extern "C" int mapper_banded_roll_f32(
     const uint8_t* q, int64_t lq, const uint8_t* w, int64_t lw, const int32_t* n,
     const int32_t* m, int64_t num_cands, int band, float mutation, float ambiguity,
     float ins_open, float ins_ext, float del_open, float del_ext, float* out, void* stream) {
-  if (num_cands > 0) {
-    F32Ops ops{mutation, ambiguity, ins_open, ins_ext, del_open, del_ext};
-    banded_roll_kernel<<<static_cast<unsigned>(num_cands), band, block_smem(lq, band),
-                         static_cast<cudaStream_t>(stream)>>>(q, lq, w, lw, n, m, band, ops, out);
+  if (num_cands == 0) return 0;
+  F32Ops ops{mutation, ambiguity, ins_open, ins_ext, del_open, del_ext};
+  if (!warp_band(band)) {
+    return launch_kernel(banded_roll_kernel, static_cast<unsigned>(num_cands), band,
+                         block_smem(lq, band), stream, q, lq, w, lw, n, m, band, ops, out);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int span = static_cast<int>(lq);  // the whole row as one chunk
+  return launch_rows_f32_warp(q, lq, w, lw, n, m, num_cands, band, span, ops, out, stream);
 }
 
 extern "C" int mapper_banded_chunk_f32(
     const uint8_t* q, int64_t lq, const uint8_t* w, int64_t lw, const int32_t* n,
     const int32_t* m, int64_t num_cands, int band, int chunk, float mutation, float ambiguity,
     float ins_open, float ins_ext, float del_open, float del_ext, float* out, void* stream) {
-  if (num_cands > 0) {
-    F32Ops ops{mutation, ambiguity, ins_open, ins_ext, del_open, del_ext};
-    const auto s = static_cast<cudaStream_t>(stream);
-    if (!warp_band(band)) {
-      banded_chunk_kernel<<<static_cast<unsigned>(num_cands), band, block_smem(chunk, band), s>>>(
-          q, lq, w, lw, n, m, band, chunk, ops, out);
-    } else {
-      // a chunk wider than the rows stages the rows: the same single chunk
-      const int span = chunk < lq ? chunk : static_cast<int>(lq);
-      const size_t smem = warp_smem(span, band, sizeof(float));
-      if (band == 64) {
-        banded_chunk_f32_warp_kernel<2><<<warp_grid(num_cands), 32 * kCandsPerBlock, smem, s>>>(
-            q, lq, w, lw, n, m, num_cands, span, ops, out);
-      } else {
-        banded_chunk_f32_warp_kernel<4><<<warp_grid(num_cands), 32 * kCandsPerBlock, smem, s>>>(
-            q, lq, w, lw, n, m, num_cands, span, ops, out);
-      }
-    }
+  if (num_cands == 0) return 0;
+  F32Ops ops{mutation, ambiguity, ins_open, ins_ext, del_open, del_ext};
+  if (!warp_band(band)) {
+    return launch_kernel(banded_chunk_kernel, static_cast<unsigned>(num_cands), band,
+                         block_smem(chunk, band), stream, q, lq, w, lw, n, m, band, chunk, ops,
+                         out);
   }
-  return static_cast<int>(cudaGetLastError());
+  // a chunk wider than the rows stages the rows: the same single chunk
+  const int span = chunk < lq ? chunk : static_cast<int>(lq);
+  return launch_rows_f32_warp(q, lq, w, lw, n, m, num_cands, band, span, ops, out, stream);
 }

@@ -10,13 +10,12 @@
 //             with the probes' own constants; its min is the plain min, or
 //             the arithmetic min b + (d & (d >> 15)) of benchmarks/probe_i16/d.py.
 //
-// Two sets of pieces run that step.  The block-level ones (K3, K5, and K1, K2
-// and K4 at bands other than 64 and 128) hold one lane a thread and exchange
-// through two ping-pong shared-memory buffers (buffer p is bufs + p * slots),
-// one barrier per exchange: `t` is the thread's slot, `sub` its lane within
-// its candidate's `width` lanes, so no shift or Kogge-Stone step crosses into
-// another candidate.  The warp-level ones (K1, K2 and K4 at bands 64 and 128,
-// and the probes' row bodies) are below, after final_lane.
+// Two sets of pieces run that step.  The block-level ones (K5, and K1, K2
+// and K4, at bands other than 64 and 128) hold one lane a thread, thread k
+// lane k of the block's one candidate, and exchange through two ping-pong
+// shared-memory buffers of `band` values (buffer p is bufs + p * band), one
+// barrier per exchange.  The warp-level ones (K3, and K1, K2, K4 and K5 at
+// bands 64 and 128, and the probes' row bodies) are below, after final_lane.
 
 #pragma once
 
@@ -89,14 +88,14 @@ struct ProbeOps {
   __device__ __forceinline__ T step_ext(int step) const { return static_cast<T>(step * del_ext); }
 };
 
-// One exchange: every lane publishes v; lane t reads slot t + offset where
-// `ok` (the source lane belongs to its candidate), else `fill`.
+// One exchange: every lane publishes v; lane k reads slot k + offset where
+// `ok` (the source lane is in the band), else `fill`.
 template <class T>
-__device__ __forceinline__ T lane_shift(T* bufs, int slots, int& p, int t, T v, int offset,
+__device__ __forceinline__ T lane_shift(T* bufs, int band, int& p, int k, T v, int offset,
                                         bool ok, T fill) {
-  bufs[p * slots + t] = v;
+  bufs[p * band + k] = v;
   __syncthreads();
-  const T r = ok ? bufs[p * slots + t + offset] : fill;
+  const T r = ok ? bufs[p * band + k + offset] : fill;
   p ^= 1;
   return r;
 }
@@ -112,91 +111,90 @@ __device__ __forceinline__ typename Ops::T dp_diag(const Ops& ops, typename Ops:
 // Query insertion (x, y) -> (x + 1, y): the band shifts down by one lane.
 template <class Ops>
 __device__ __forceinline__ typename Ops::T dp_ins_shift(const Ops& ops, typename Ops::T* bufs,
-                                                        int slots, int& p, int t, int sub,
-                                                        int width, typename Ops::T best,
-                                                        typename Ops::T ins, bool active) {
+                                                        int band, int& p, int k,
+                                                        typename Ops::T best,
+                                                        typename Ops::T ins) {
   const auto cand = ops.sat(ops.min(ops.add(ins, ops.ins_ext), ops.add(best, ops.ins_open)));
-  const auto shifted = lane_shift(bufs, slots, p, t, cand, 1, sub + 1 < width, ops.inf());
-  return active ? shifted : ops.inf();
+  return lane_shift(bufs, band, p, k, cand, 1, k + 1 < band, ops.inf());
 }
 
 // Deletion chain opening: the lane above's value plus the opening penalty.
 template <class Ops>
 __device__ __forceinline__ typename Ops::T dp_chain_open(const Ops& ops, typename Ops::T* bufs,
-                                                         int slots, int& p, int t, int sub,
+                                                         int band, int& p, int k,
                                                          typename Ops::T best_after) {
-  const auto shifted = lane_shift(bufs, slots, p, t, best_after, -1, sub > 0, ops.inf());
+  const auto shifted = lane_shift(bufs, band, p, k, best_after, -1, k > 0, ops.inf());
   return ops.sat(ops.add(shifted, ops.del_open));
 }
 
 // Deletion chain extension: min-plus Kogge-Stone scan over the lanes,
-// chain = min(chain, moved + step * del_ext) for step = 1, 2, 4, ... < width.
+// chain = min(chain, moved + step * del_ext) for step = 1, 2, 4, ... < band.
 template <class Ops>
 __device__ __forceinline__ typename Ops::T dp_ks_scan(const Ops& ops, typename Ops::T* bufs,
-                                                      int slots, int& p, int t, int sub,
-                                                      int width, typename Ops::T chain) {
-  for (int step = 1; step < width; step <<= 1) {
-    const auto moved = lane_shift(bufs, slots, p, t, chain, -step, sub >= step, ops.inf());
+                                                      int band, int& p, int k,
+                                                      typename Ops::T chain) {
+  for (int step = 1; step < band; step <<= 1) {
+    const auto moved = lane_shift(bufs, band, p, k, chain, -step, k >= step, ops.inf());
     chain = ops.min(chain, ops.sat(ops.add(moved, ops.step_ext(step))));
   }
   return chain;
 }
 
-// One query position of the banded DP, for one lane of one candidate.
-// `active` is x < n: an inactive lane keeps its state but still takes part
-// in every barrier.
+// One query position of the banded DP, for lane k of an active row (the
+// caller runs x < min(n, lq) only).
 template <class Ops>
-__device__ __forceinline__ void dp_step(const Ops& ops, typename Ops::T* bufs, int slots,
-                                        int& p, int t, int sub, int width,
-                                        typename Ops::T pen, bool w_valid, bool active,
+__device__ __forceinline__ void dp_step(const Ops& ops, typename Ops::T* bufs, int band, int& p,
+                                        int k, typename Ops::T pen, bool w_valid,
                                         typename Ops::T& best, typename Ops::T& ins) {
   using T = typename Ops::T;
-  const bool live = w_valid && active;
-  const T diag_new = dp_diag(ops, best, pen, live);
-  const T ins_new = dp_ins_shift(ops, bufs, slots, p, t, sub, width, best, ins, active);
+  const T diag_new = dp_diag(ops, best, pen, w_valid);
+  const T ins_new = dp_ins_shift(ops, bufs, band, p, k, best, ins);
   const T best_after = ops.min(diag_new, ins_new);
-  T chain = dp_chain_open(ops, bufs, slots, p, t, sub, best_after);
-  chain = dp_ks_scan(ops, bufs, slots, p, t, sub, width, chain);
-  if (!live) chain = ops.inf();
-  if (active) {
-    best = ops.min(best_after, chain);
-    ins = ins_new;
-  }
+  T chain = dp_chain_open(ops, bufs, band, p, k, best_after);
+  chain = dp_ks_scan(ops, bufs, band, p, k, chain);
+  if (!w_valid) chain = ops.inf();
+  best = ops.min(best_after, chain);
+  ins = ins_new;
 }
 
-// The min of `fin` over the candidate's `width` lanes (the score captured
-// at x + 1 == n; the probes' row min-reduce).  Every thread of the block
-// calls it; the result is returned to every lane.
+// The min of `fin` over the block's `band` lanes (the score captured at
+// x + 1 == n).  Every thread of the block calls it; the result is returned
+// to every lane.
 template <class T>
-__device__ __forceinline__ T capture(T* buf, int t, int sub, int width, T fin) {
+__device__ __forceinline__ T capture(T* buf, int k, int band, T fin) {
   __syncthreads();  // the last readers of buf are done
-  buf[t] = fin;
+  buf[k] = fin;
   __syncthreads();
-  for (int w = width; w > 1;) {
+  for (int w = band; w > 1;) {
     const int half = (w + 1) / 2;
-    if (sub < w - half) buf[t] = vmin(buf[t], buf[t + half]);
+    if (k < w - half) buf[k] = vmin(buf[k], buf[k + half]);
     __syncthreads();
     w = half;
   }
-  return buf[t - sub];
+  return buf[0];
 }
 
 template <class Ops>
-__device__ __forceinline__ typename Ops::T final_lane(const Ops& ops, int n, int64_t lq, int sub,
+__device__ __forceinline__ typename Ops::T final_lane(const Ops& ops, int n, int64_t lq, int k,
                                                       int m, typename Ops::T best) {
-  return n >= 1 && n <= lq && n + sub <= m ? best : ops.inf();
+  return n >= 1 && n <= lq && n + k <= m ? best : ops.inf();
 }
 
 // ---------------------------------------------------------------------------
 // Warp-level pieces.  One warp holds one band, thread t a run of consecutive
-// lanes in P registers, in one of two layouts:
-// - int16, 64 * P lanes: thread t holds lanes [2P t, 2P t + 2P) in P
-//   registers of two int16 each (s16x2: lane 2(P t + p) in the low half of
-//   register p, the next lane in its high half);
-// - float32, 32 * P lanes: thread t holds lanes [P t, P t + P), lane P t + p
-//   in register p.  This blocked layout keeps a shift by fewer than P lanes
-//   mostly inside the thread: at band 128 a step takes 25 shuffles, against
-//   28 for lanes strided over the threads.
+// lanes in P registers, in one of two layouts, kRegLanes of the Ops struct:
+// - two lanes a register (kRegLanes 2), int16, 64 * P lanes: thread t holds
+//   lanes [2P t, 2P t + 2P) in P registers of two int16 each (s16x2: lane
+//   2(P t + p) in the low half of register p, the next lane in its high
+//   half).  A shift by one lane crosses halves (__byte_perm);
+// - one lane a register (kRegLanes 1), 32 * P lanes: thread t holds lanes
+//   [P t, P t + P), lane P t + p in register p, a float32 (F32x1Ops) or an
+//   s16x2 pair of two candidates' lane (I16PairOps: the low half the first
+//   candidate's, the high half the second's).  Every shift moves whole
+//   registers, so both halves of a pair move in step.  This blocked layout
+//   keeps a shift by fewer than P lanes mostly inside the thread: at band
+//   128 a float step takes 25 shuffles, against 28 for lanes strided over the
+//   threads.
 // Every exchange is a register shuffle inside the warp plus in-thread moves,
 // so no piece has a barrier.  The order of the operations, the Kogge-Stone
 // strides and the clamps are those of the block-level pieces above, so each
@@ -215,6 +213,10 @@ __device__ __forceinline__ typename Ops::T final_lane(const Ops& ops, int n, int
 //   ProbeOps2<A>   the probes' int16 arithmetic that wraps modulo 2^16, per
 //                  half (__vadd2 wraps); with A, the arithmetic min of
 //                  ProbeOps<true>, half by half;
+//   I16PairOps     I16x2Ops's arithmetic on the one-lane layout: each half
+//                  is its own candidate, and the sums and mins never mix
+//                  halves, so a register holds the same lane of two
+//                  candidates (K3's pairs);
 //   F32x1Ops       F32Ops's expressions on one float lane a register:
 //                  every add __fadd_rn, step_ext __fmul_rn(f32(S), del_ext),
 //                  no clamp; its min is fminf (one FMNMX, where vmin takes
@@ -223,8 +225,8 @@ __device__ __forceinline__ typename Ops::T final_lane(const Ops& ops, int n, int
 //                  either with finite penalties: every state starts at +0
 //                  or kBig and is a sum with a state as one operand, and a
 //                  sum is -0 only when both operands are.
-// A lane mask is a per-half uint32_t for the int16 layout, a bool per
-// register for the float32 one.
+// A lane mask is a per-half uint32_t for the s16x2 registers, a bool per
+// register for the float32 ones.
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -274,6 +276,12 @@ struct I16x2Ops {
   __device__ __forceinline__ uint32_t step_ext(int step) const { return splat2(step * del_ext); }
 };
 
+// Two band-64 candidates in step: lane k of the first in the low half, lane
+// k of the second in the high half of one register.
+struct I16PairOps : I16x2Ops {
+  static constexpr int kRegLanes = 1;
+};
+
 template <bool kArithMin>
 struct ProbeOps2 {
   static constexpr int kRegLanes = 2;
@@ -321,11 +329,11 @@ struct F32x1Ops {
   __device__ __forceinline__ float del_open2() const { return s.del_open; }
 };
 
-// Lane k takes lane k - S, `fill` below lane 0 (S = 1, or S even).  `t` is
-// the thread's lane in the warp.
+// The two-lanes-a-register layout's shifts.  Lane k takes lane k - S, `fill`
+// below lane 0 (S = 1, or S even).  `t` is the thread's lane in the warp.
 template <int S, int P>
-__device__ __forceinline__ void warp_shift_up(const uint32_t (&v)[P], uint32_t (&out)[P],
-                                              uint32_t fill, int t) {
+__device__ __forceinline__ void warp_shift_up_x2(const uint32_t (&v)[P], uint32_t (&out)[P],
+                                                 uint32_t fill, int t) {
   if constexpr (S == 1) {
     uint32_t carry = __shfl_up_sync(kFullMask, v[P - 1], 1);
     if (t == 0) carry = fill;
@@ -346,21 +354,21 @@ __device__ __forceinline__ void warp_shift_up(const uint32_t (&v)[P], uint32_t (
 
 // Lane k takes lane k + 1, `fill` in the top lane.
 template <int P>
-__device__ __forceinline__ void warp_shift_down1(const uint32_t (&v)[P], uint32_t (&out)[P],
-                                                 uint32_t fill, int t) {
+__device__ __forceinline__ void warp_shift_down1_x2(const uint32_t (&v)[P], uint32_t (&out)[P],
+                                                    uint32_t fill, int t) {
   uint32_t carry = __shfl_down_sync(kFullMask, v[0], 1);
   if (t == 31) carry = fill;
 #pragma unroll
   for (int p = 0; p < P; ++p) out[p] = __byte_perm(v[p], p + 1 < P ? v[p + 1] : carry, 0x5432);
 }
 
-// The float32 layout's shifts.  Lane k takes lane k - S, `fill` below lane
-// 0: for S < P, register p takes register p - S of its own thread, or
-// register p - S + P of the thread below; for S >= P (S and P powers of two,
-// so S / P threads exactly), register p of the thread S / P below.
-template <int S, int P>
-__device__ __forceinline__ void warp_shift_up(const float (&v)[P], float (&out)[P], float fill,
-                                              int t) {
+// The one-lane-a-register layout's shifts, on a float or on an s16x2 pair.
+// Lane k takes lane k - S, `fill` below lane 0: for S < P, register p takes
+// register p - S of its own thread, or register p - S + P of the thread
+// below; for S >= P (S and P powers of two, so S / P threads exactly),
+// register p of the thread S / P below.
+template <int S, int P, class R>
+__device__ __forceinline__ void warp_shift_up_x1(const R (&v)[P], R (&out)[P], R fill, int t) {
   if constexpr (S < P) {
 #pragma unroll
     for (int p = 0; p < P; ++p) {
@@ -368,7 +376,7 @@ __device__ __forceinline__ void warp_shift_up(const float (&v)[P], float (&out)[
       if (p >= S) {
         out[p] = v[src];
       } else {
-        const float got = __shfl_up_sync(kFullMask, v[src], 1);
+        const R got = __shfl_up_sync(kFullMask, v[src], 1);
         out[p] = t >= 1 ? got : fill;
       }
     }
@@ -377,20 +385,38 @@ __device__ __forceinline__ void warp_shift_up(const float (&v)[P], float (&out)[
     constexpr int kThreads = S / P;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const float got = __shfl_up_sync(kFullMask, v[p], kThreads);
+      const R got = __shfl_up_sync(kFullMask, v[p], kThreads);
       out[p] = t >= kThreads ? got : fill;
     }
   }
 }
 
 // Lane k takes lane k + 1, `fill` in the top lane.
-template <int P>
-__device__ __forceinline__ void warp_shift_down1(const float (&v)[P], float (&out)[P], float fill,
-                                                 int t) {
-  float carry = __shfl_down_sync(kFullMask, v[0], 1);
+template <int P, class R>
+__device__ __forceinline__ void warp_shift_down1_x1(const R (&v)[P], R (&out)[P], R fill, int t) {
+  R carry = __shfl_down_sync(kFullMask, v[0], 1);
   if (t == 31) carry = fill;
 #pragma unroll
   for (int p = 0; p < P; ++p) out[p] = p + 1 < P ? v[p + 1] : carry;
+}
+
+// The shifts of Ops's layout: chosen by kRegLanes, not by the register type,
+// which is uint32_t in both int16 layouts.
+template <class Ops, int S, int P, class R>
+__device__ __forceinline__ void warp_shift_up(const R (&v)[P], R (&out)[P], R fill, int t) {
+  if constexpr (Ops::kRegLanes == 2) {
+    warp_shift_up_x2<S, P>(v, out, fill, t);
+  } else {
+    warp_shift_up_x1<S, P>(v, out, fill, t);
+  }
+}
+template <class Ops, int P, class R>
+__device__ __forceinline__ void warp_shift_down1(const R (&v)[P], R (&out)[P], R fill, int t) {
+  if constexpr (Ops::kRegLanes == 2) {
+    warp_shift_down1_x2<P>(v, out, fill, t);
+  } else {
+    warp_shift_down1_x1<P>(v, out, fill, t);
+  }
 }
 
 // dp_diag: live ? sat(best + pen) : inf, `live` a lane mask.
@@ -408,14 +434,14 @@ __device__ __forceinline__ void dp_ins_shift_w(const Ops& ops, const R (&best)[P
   R cand[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) cand[p] = ops.ins_cand(best[p], ins[p]);
-  warp_shift_down1<P>(cand, out, ops.inf(), t);
+  warp_shift_down1<Ops, P>(cand, out, ops.inf(), t);
 }
 
 // dp_chain_open.
 template <class Ops, class R, int P>
 __device__ __forceinline__ void dp_chain_open_w(const Ops& ops, const R (&best_after)[P],
                                                 R (&out)[P], int t) {
-  warp_shift_up<1, P>(best_after, out, ops.inf(), t);
+  warp_shift_up<Ops, 1, P>(best_after, out, ops.inf(), t);
 #pragma unroll
   for (int p = 0; p < P; ++p) out[p] = ops.add_sat(out[p], ops.del_open2());
 }
@@ -425,7 +451,7 @@ template <class Ops, int P, int S = 1, class R>
 __device__ __forceinline__ void dp_ks_scan_w(const Ops& ops, R (&chain)[P], int t) {
   if constexpr (S < 32 * Ops::kRegLanes * P) {
     R moved[P];
-    warp_shift_up<S, P>(chain, moved, ops.inf(), t);
+    warp_shift_up<Ops, S, P>(chain, moved, ops.inf(), t);
     const R ext = ops.step_ext(S);
 #pragma unroll
     for (int p = 0; p < P; ++p) chain[p] = ops.chain_ext(chain[p], moved[p], ext);
@@ -461,6 +487,14 @@ __device__ __forceinline__ float warp_min(float v) {
 #pragma unroll
   for (int offset = 16; offset > 0; offset >>= 1) {
     v = vmin(v, __shfl_xor_sync(kFullMask, v, offset));
+  }
+  return v;
+}
+// the pair layout's: each half's min, both at once
+__device__ __forceinline__ uint32_t warp_min2(uint32_t v) {
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    v = __vmins2(v, __shfl_xor_sync(kFullMask, v, offset));
   }
   return v;
 }

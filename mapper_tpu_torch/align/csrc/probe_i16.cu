@@ -255,7 +255,7 @@ __global__ void __launch_bounds__(32 * kRowWarps) probe_row_kernel(
     return;
   } else {
     if constexpr (kBody == kConcatShift) {
-      warp_shift_up<1, P>(v, o, splat2(7), t);
+      warp_shift_up_x2<1, P>(v, o, splat2(7), t);
     } else if constexpr (kBody == kKoggeStone || kBody == kKsFull || kBody == kKsWhere) {
       dp_ks_scan_w(ops, v, t);
 #pragma unroll

@@ -16,9 +16,11 @@ Three kinds of entry:
   uint8, with lengths n and m;
 - `probe_i16` runs one body of the int16 probe kernels (P1-P9) on an int16
   [rows, lanes] block, lanes 64, 128 or 256.
-`banded_i16`, `banded_f32` and `banded_chunk_f32` run one warp a candidate at
-the bands of `WARP_BANDS`, one block a candidate elsewhere; the packed and the
-roll kernel always run one block.
+`banded_i16`, `banded_f32`, `banded_roll_f32` and `banded_chunk_f32` run one
+warp a candidate at the bands of `WARP_BANDS`, one block a candidate
+elsewhere; `banded_i16_packed` (band 64 only) runs one warp a pair of
+candidates.  A launch that needs more than 48 KB of shared memory opts in
+first, up to `_SMEM_LIMIT`, which each wrapper checks.
 
 Each wrapper checks its tensors, allocates its outputs with `torch.empty`,
 launches on the current CUDA stream, raises if the launch reported an error,
@@ -57,14 +59,20 @@ LAUNCHES = {
     **{f"probe_i16_{stage}": 0 for stage in PROBE_STAGES},
 }
 PACKED_BAND = 64  # banded_i16_packed's per-candidate band (kHalf in the source)
-# the bands banded_i16, banded_f32 and banded_chunk_f32 run one warp per
-# candidate at (warp_band in the source)
+# the bands banded_i16, banded_f32, banded_roll_f32 and banded_chunk_f32 run
+# one warp per candidate at (warp_band in the source)
 WARP_BANDS = (64, 128)
 _CANDS_PER_BLOCK = 4  # the warp kernels' candidates a block (kCandsPerBlock)
+_PAIRS_PER_BLOCK = 8  # the packed kernel's pairs a block (kPairsPerBlock)
 _PEN_TABLE = 16 * 16  # the warp kernels' penalty table entries (kPenTable)
-_PEN_ENTRY_BYTES = {"banded_i16": 2, "banded_f32": 4, "banded_chunk_f32": 4}
+_PEN_ENTRY_BYTES = {
+    "banded_i16": 2, "banded_f32": 4, "banded_i16_packed": 2, "banded_roll_f32": 4,
+    "banded_chunk_f32": 4,
+}
 PROBE_LANES = (64, 128, 256)  # the lane counts the probe kernel takes
-_SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block takes without opting in
+# dynamic shared memory a block may take on sm_90 (kSmemOptIn): a launch above
+# the 48 KB default opts in first
+_SMEM_LIMIT = 232448
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -223,10 +231,10 @@ def smem_bytes(name: str, lq: int, band: int, chunk: int | None = None) -> int:
     width `lq` (and `chunk`, for banded_chunk_f32): the sum its launcher in
     `banded_dp.cu` passes.  banded_chunk_f32's warp kernel stages
     min(chunk, lq) positions at a time: a chunk wider than the rows is one
-    chunk either way."""
-    if name == "banded_i16_packed":  # packed_smem
-        return 2 * 2 * PACKED_BAND * 4 + 2 * (2 * lq + PACKED_BAND)
-    warp = band in WARP_BANDS and name != "banded_roll_f32"
+    chunk either way; banded_roll_f32's stages the whole row."""
+    if name == "banded_i16_packed":  # pair_smem: two rows a warp, their codes a byte
+        return _PEN_TABLE * _PEN_ENTRY_BYTES[name] + _PAIRS_PER_BLOCK * (2 * lq + PACKED_BAND)
+    warp = band in WARP_BANDS
     width = lq if chunk is None else (min(chunk, lq) if warp else chunk)
     if warp:
         return _warp_smem(width, band, _PEN_ENTRY_BYTES[name])
@@ -345,9 +353,9 @@ def _prepare_rows(q, w, n, m, band, smem):
 
 
 def banded_i16_packed(q, w, n, m, ints, inv: float):
-    """K3: the int16-unit DP at band 64, two candidates per block (rows i
-    and i + ceil(B / 2)).  Returns (scores [B], diag_sums [B, 64]), float32,
-    in penalty units."""
+    """K3: the int16-unit DP at band 64, two candidates per warp (rows i
+    and i + ceil(B / 2), one in each int16 half of the DP's registers).
+    Returns (scores [B], diag_sums [B, 64]), float32, in penalty units."""
     smem = smem_bytes("banded_i16_packed", q.shape[1], PACKED_BAND)
     b, stream, rows = _prepare_rows(q, w, n, m, PACKED_BAND, smem)
     scores = torch.empty(b, dtype=torch.float32, device=q.device)
@@ -366,7 +374,9 @@ def banded_i16_packed(q, w, n, m, ints, inv: float):
 
 def banded_roll_f32(q, w, n, m, params6, band: int):
     """K5: float32 banded DP with the penalty computed in the kernel, whole
-    rows staged once.  Returns scores [B] float32."""
+    rows staged once.  Returns scores [B] float32.  At `WARP_BANDS` one warp
+    scores a candidate (K4's warp kernel with one chunk the width of the
+    row), elsewhere one block."""
     smem = smem_bytes("banded_roll_f32", q.shape[1], band)
     b, stream, rows = _prepare_rows(q, w, n, m, band, smem)
     scores = torch.empty(b, dtype=torch.float32, device=q.device)

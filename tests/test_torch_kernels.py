@@ -114,7 +114,7 @@ def _host_rows(cands, band, device, chunk=128):
 def test_diag_out_matches_plain(cuda, band, lq, num):
     """banded_i16 / banded_f32 on host rows fill every diagonal's sum (the
     1,024-wide rows take f32 at default penalties), exactly.  Called
-    directly: at band 64 "pen" takes the packed kernel instead."""
+    directly, whatever route "pen" takes at band 64."""
     params = AlignmentParameters.defaults()
     cands = _with_edges(scoring_candidates(np.random.default_rng(band + lq), num, lq, band), lq)
     rows = _host_rows(cands, band, cuda)
@@ -143,35 +143,64 @@ def test_diag_out_matches_plain(cuda, band, lq, num):
     np.testing.assert_array_equal(got_d.cpu().numpy(), want_d.numpy())
 
 
+def _unequal_pairs(n, lq):
+    """Pairs of very unequal lengths for the packed kernel, which pairs row
+    i with row i + ceil(B / 2): n = 1 against n = lq both ways round, n = 0
+    against lq, and n > lq (rows 3-4 of `_with_edges`) against their
+    partners."""
+    n = n.clone()
+    hb = (n.shape[0] + 1) // 2
+    n[10:20], n[10 + hb:20 + hb] = 1, lq
+    n[20:30], n[20 + hb:30 + hb] = lq, 1
+    n[30], n[30 + hb] = 0, lq
+    n[3:5] = lq + 7
+    return n
+
+
+def _packed_and_k1(rows, params):
+    """banded_i16_packed and banded_i16 on the same host rows at band 64, and
+    the plain version's (scores, diagonal sums)."""
+    q, w, n, m = rows
+    scale, ints = banded._quantize_params(params, q.shape[1], 64)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.banded_i16_packed(q, w, n, m, ints, banded._inv(scale))
+    assert kernels.LAUNCHES["banded_i16_packed"] == before["banded_i16_packed"] + 1
+    diag = torch.empty((q.shape[0], 64), dtype=torch.float32, device=q.device)
+    k1 = kernels.banded_i16(*banded._rows_as_candidates(*rows), ints, banded._inv(scale), 64, diag_out=diag)
+    plain = banded.banded_scores(*[r.cpu() for r in rows], params, band=64, return_diag_sums=True)
+    torch.cuda.synchronize()
+    return got, (k1[0], diag), plain
+
+
 @pytest.mark.parametrize("num", [2047, 2048])
 def test_banded_i16_packed_equals_plain(cuda, num):
-    """Variant "pen" at band 64 takes the packed kernel; it equals the plain
-    version and banded_i16 on the same host rows, scores and diagonal sums."""
+    """The packed kernel equals the plain version and banded_i16 on the same
+    host rows, scores and diagonal sums, with B odd (a pad row in the last
+    pair) and even, pairs of very unequal n, n > LQ and windows at the
+    reference's ends; and variant "pen" at band 64 takes the packed kernel."""
     params = AlignmentParameters.defaults()
-    cands = scoring_candidates(np.random.default_rng(num), num, 192, 64)
-    rows = _host_rows(cands, 64, cuda)
-    before = dict(kernels.LAUNCHES)
-    got = banded.banded_scores(*rows, params, band=64, return_diag_sums=True)
-    assert kernels.LAUNCHES["banded_i16_packed"] == before["banded_i16_packed"] + 1
-    assert kernels.LAUNCHES["banded_i16"] == before["banded_i16"]
-    plain = banded.banded_scores(*[r.cpu() for r in rows], params, band=64, return_diag_sums=True)
-    scale, ints = banded._quantize_params(params, rows[0].shape[1], 64)
-    diag = torch.empty((num, 64), dtype=torch.float32, device=cuda)
-    out = kernels.banded_i16(
-        *banded._rows_as_candidates(*rows), ints, banded._inv(scale), 64, diag_out=diag
-    )
-    torch.cuda.synchronize()
-    for g, p, u in zip(got, plain, (out[0], diag)):
+    cands = _with_edges(scoring_candidates(np.random.default_rng(num), num, 192, 64), 192)
+    q, w, n, m = _host_rows(cands, 64, cuda)
+    rows = (q, w, _unequal_pairs(n, q.shape[1]), m)
+    got, k1, plain = _packed_and_k1(rows, params)
+    for g, u, p in zip(got, k1, plain):
         assert torch.equal(g.cpu(), p) and torch.equal(g, u)
     assert (got[0] < 1e8).float().mean() > 0.5
+    before = dict(kernels.LAUNCHES)
+    routed = banded.banded_scores(*rows, params, band=64, return_diag_sums=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["banded_i16_packed"] == before["banded_i16_packed"] + 1
+    assert kernels.LAUNCHES["banded_i16"] == before["banded_i16"]
+    assert all(torch.equal(r, g) for r, g in zip(routed, got))
 
 
 @pytest.mark.parametrize("variant,name", [("roll", "banded_roll_f32"), ("chunk", "banded_chunk_f32")])
-@pytest.mark.parametrize("band", [64, 128])
+@pytest.mark.parametrize("band", [32, 64, 128])
 @pytest.mark.parametrize("lq,chunk,num", [(1024, 128, 512), (200, 64, 512), (1024, 128, 509)])
 def test_roll_and_chunk_match_plain(cuda, variant, name, band, lq, chunk, num):
-    """Exactly: "chunk" runs the warp kernel at bands 64 and 128, "roll" the
-    block kernel."""
+    """Exactly, against `banded._pen_core`: both run their warp kernel at
+    bands 64 and 128 ("roll" K4's with one chunk the width of the row) and
+    their block kernel at band 32."""
     params = AlignmentParameters.defaults()
     cands = scoring_candidates(np.random.default_rng(lq + band), num, lq, band)
     rows = _host_rows(cands, band, cuda, chunk)
@@ -203,8 +232,8 @@ def test_chunk_kernel_takes_a_ragged_last_chunk(cuda, band, chunk):
 
 @pytest.mark.parametrize("band", [64, 128])
 def test_chunk_roll_and_pen_f32_agree(cuda, band):
-    """K4 (warp), K5 (block) and "pen" f32 (K2's warp kernel on the rows)
-    give the same scores bit for bit on the same rows."""
+    """K4, K5 and "pen" f32 (K2's warp kernel on the rows) give the plain
+    version's scores bit for bit on the same rows."""
     params = AlignmentParameters.defaults()
     cands = scoring_candidates(np.random.default_rng(band), 4 * 64 + 1, 1024, band)
     rows = _host_rows(cands, band, cuda)
@@ -217,8 +246,43 @@ def test_chunk_roll_and_pen_f32_agree(cuda, band):
     torch.cuda.synchronize()
     for name in ("banded_chunk_f32", "banded_roll_f32", "banded_f32"):
         assert kernels.LAUNCHES[name] == before[name] + 1
-    assert torch.equal(scores["chunk"], scores["roll"]) and torch.equal(scores["roll"], scores["pen"])
+    plain = banded.banded_scores(*[r.cpu() for r in rows], params, band=band, variant="roll")
+    for variant in ("chunk", "roll", "pen"):
+        assert torch.equal(scores[variant].cpu(), plain), variant
     assert (scores["pen"] < 1e8).float().mean() > 0.5
+
+
+# penalties of whole units (scale 1), so the int16 path takes wide rows
+_UNIT_PARAMS = dict(mutation_penalty=3.0, indel_start_penalty=2.0, indel_extension_penalty=1.0,
+                    ambiguity_penalty=3.0, additional_insertion_extension_penalty=1.0)
+
+
+@pytest.mark.parametrize("name,band,lq", [
+    ("banded_roll_f32", 64, 6144), ("banded_roll_f32", 128, 6144), ("banded_i16_packed", 64, 3200),
+])
+def test_rows_above_48_kb_of_shared_memory(cuda, name, band, lq):
+    """A width whose warp layout needs more than the 48 KB a block takes
+    without opting in: the launch opts in, and the scores (and K3's
+    diagonal sums) equal the plain version's."""
+    assert kernels.smem_bytes(name, lq, band) > 48 * 1024
+    rng = np.random.default_rng(lq + band)
+    cands = _with_edges(scoring_candidates(rng, 4 * 16 + 3, lq, band, num_reads=64), lq)
+    q, w, n, m = _host_rows(cands, band, cuda)
+    assert q.shape[1] == lq
+    if name == "banded_roll_f32":
+        params = AlignmentParameters.defaults()
+        got = kernels.banded_roll_f32(q, w, n, m, banded._params_tuple(params), band)
+        plain = banded.banded_scores(q.cpu(), w.cpu(), n.cpu(), m.cpu(), params, band=band, variant="roll")
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), plain)
+        assert (got < 1e8).float().mean() > 0.5
+        return
+    params = AlignmentParameters.defaults(**_UNIT_PARAMS)
+    assert banded._quantize_params(params, lq, 64)[0] == 1
+    got, k1, plain = _packed_and_k1((q, w, _unequal_pairs(n, lq), m), params)
+    for g, u, p in zip(got, k1, plain):
+        assert torch.equal(g.cpu(), p) and torch.equal(g, u)
+    assert (got[0] < 1e8).float().mean() > 0.5
 
 
 def test_host_row_wrappers_skip_an_empty_batch(cuda):
