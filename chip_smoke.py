@@ -54,7 +54,23 @@ Phases (each raises on failure; nothing is caught):
 6. the device pileup: the 100,000-read run again with
    MAPPER_TPU_DEVICE_PILEUP=1, launch counts read around it.  banded_i16
    must launch, rows must have been counted on the card, and SAM, VCF and
-   mutations must be byte-identical to the run without it.
+   mutations must be byte-identical to the run without it;
+7. the device-candidates path (`batch/device_candidates.py`): on the first
+   4,096 reads of the 150 bp run, the candidates program on the card must
+   give the host candidate pass's rows on every read it does not flag for
+   fallback, and the fused program's whole int32 output on the card must
+   equal (torch.equal) the same program run on the CPU with the plain
+   scorer; both programs are timed with CUDA events beside the host pass's
+   wall time.  Then the 100,000-read and 2,000-read CLI runs again with
+   MAPPER_TPU_DEVICE_CANDIDATES=1, launch counts read around them: every
+   single-end chunk must take the fused path, banded_i16 must launch in the
+   first and banded_f32 in the second, and SAM, VCF and mutations must be
+   byte-identical to the host-scored twins;
+8. a paired run in config 3's shape (20,000 pairs of 2 x 150 bp from
+   `benchmarks.simlib.simulate_paired`, --spacing 100 50) and a
+   --split-queries-past-size 1500 run (500 reads of 3,000 bp, scored in
+   1,500 bp pieces by banded_f32), launch counts read around each, each
+   byte-identical to its host-scored twin.
 
 The line before the last but one lists the kernels as JSON, each with its
 time, plain time, bound, what bounds it, library time (or null) and its
@@ -83,9 +99,10 @@ from pathlib import Path
 # either fails from here on
 sys.modules["jax"] = None
 sys.modules["mapper_tpu"] = None
-# the host-scored twins score every read on the host, the 1,000 bp ones too
-# (the engine reads this ceiling when it is imported; it defaults to 600 bp)
-os.environ["MAPPER_TPU_HOST_SCORING_MAX_LEN"] = "1024"
+# the host-scored twins score every read on the host, the 1,000 bp ones and
+# the 1,500 bp pieces of the split-query run too (the engine reads this
+# ceiling when it is imported; it defaults to 600 bp)
+os.environ["MAPPER_TPU_HOST_SCORING_MAX_LEN"] = "2048"
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 KERNEL_SOURCE = "mapper_tpu_torch/align/csrc/banded_dp.cu"
@@ -103,6 +120,7 @@ CHUNK = 128
 HOST_WINDOW_SHAPES = {
     (192, 64): (16384, 64), (192, 128): (16384, 128), (1024, 64): (4096, 7), (1024, 128): (4096, 7),
 }
+DC_READS = 4096  # the device-candidates program checks' chunk: the engine's default
 PROBE_ROWS = 16384  # the probes' timing block: one row per candidate of the 150 bp phase
 PROBE_TURN_CALLS = 50  # calls a replay, when a probe body is timed in turns with its library call
 
@@ -623,10 +641,11 @@ def probe_phase(kernels) -> dict:
     return launches
 
 
-def simulate_inputs(root: Path, ref_size: int, num_short: int, num_long: int, seed: int = 0):
+def simulate_inputs(root: Path, ref_size: int, num_short: int, num_long: int, num_pairs: int,
+                    num_split: int, seed: int = 0):
     import numpy as np
 
-    from benchmarks.simlib import random_reference, write_reference
+    from benchmarks.simlib import random_reference, simulate_paired, write_reference
     from mapper_tpu_torch.simulate import simulate_reads, write_fastq
 
     rng = np.random.default_rng(seed)
@@ -634,16 +653,27 @@ def simulate_inputs(root: Path, ref_size: int, num_short: int, num_long: int, se
     write_reference(str(root / "ref.fasta"), {"chr1": ref})
     write_fastq(root / "short.fastq", simulate_reads(rng, ref, num_short, 150, 0.01, 0.1, "s"))
     write_fastq(root / "long.fastq", simulate_reads(rng, ref, num_long, 1000, 0.01, 0.1, "l"))
+    # config 3's pairs (benchmarks/bench_config3_pe.py) and reads to split
+    simulate_paired(str(root / "pairs_1.fasta"), str(root / "pairs_2.fasta"), ref, num_pairs, seed=7)
+    write_fastq(root / "split.fastq", simulate_reads(rng, ref, num_split, 3000, 0.01, 0.1, "q"))
 
 
-def run_cli(root: Path, queries: str, tag: str, host_scoring: bool) -> dict:
+# the CLI runs' query arguments, input files named relative to the run's root
+SHORT = ["--queries", "short.fastq"]
+LONG = ["--queries", "long.fastq"]
+PAIRED = ["--paired-queries", "pairs_1.fasta", "pairs_2.fasta", "--spacing", "100", "50"]
+SPLIT = ["--split-queries-past-size", "1500", "--queries", "split.fastq"]
+
+
+def run_cli(root: Path, query_args: list[str], tag: str, host_scoring: bool) -> dict:
     """One CLI run; returns its output bytes and align-phase numbers."""
     from mapper_tpu_torch import cli
 
     out = root / tag
     out.mkdir()
     args = [
-        "--reference", str(root / "ref.fasta"), "--queries", str(root / queries),
+        "--reference", str(root / "ref.fasta"),
+        *(str(root / a) if a.endswith((".fasta", ".fastq")) else a for a in query_args),
         "--out-sam", str(out / "out.sam"), "--out-vcf", str(out / "out.vcf"),
         "--out-mutations", str(out / "mutations.txt"),
         "--out-refs-map-count", str(out / "refs.txt"),
@@ -672,20 +702,28 @@ def run_cli(root: Path, queries: str, tag: str, host_scoring: bool) -> dict:
     if m is None:
         raise AssertionError(f"{tag}: no align-phase line\n{log.getvalue()[-3000:]}")
     num, seconds = int(m.group(1)), float(m.group(2))
-    unaligned = (out / "unaligned.fastq").read_text().count("\n") // 4
+    unaligned_text = (out / "unaligned.fastq").read_text()
+    # FASTA input writes FASTA records, FASTQ input FASTQ ones
+    if unaligned_text.startswith(">"):
+        unaligned = sum(line.startswith(">") for line in unaligned_text.splitlines())
+    else:
+        unaligned = unaligned_text.count("\n") // 4
     counted = re.search(r"Device pileup: (\d+) rows", log.getvalue())
+    fused = re.search(r"Device candidates: (\d+) of (\d+) single-end chunks", log.getvalue())
     result = {
         "sam": (out / "out.sam").read_bytes(),
         "vcf": (out / "out.vcf").read_bytes(),
         "mutations": (out / "mutations.txt").read_bytes(),
         "device_pileup_rows": None if counted is None else int(counted.group(1)),
+        "fused_chunks": None if fused is None else (int(fused.group(1)), int(fused.group(2))),
         "queries": num,
+        "unaligned_records": unaligned,
         "aligned_fraction": 1.0 - unaligned / num,
         "align_seconds": seconds,
         "wall_seconds": wall,
     }
     print(
-        f"[cli] {tag}: {num} queries, aligned {result['aligned_fraction']:.4f}, "
+        f"[cli] {tag}: {num} queries, {unaligned} unaligned records, "
         f"align phase {seconds:.3f} s = {num / seconds:.1f} reads/s, run {wall:.1f} s",
         flush=True,
     )
@@ -697,14 +735,14 @@ def cli_phase(root: Path, kernels) -> tuple[dict, dict, dict]:
     host-scored twins (which launch nothing).  The main path is the first:
     100,000 single-end 150 bp reads, the default CLI run, its launch counts
     read around it alone.  Returns the launch counts of the main path and of
-    both kernel runs, and the short kernel-scored run."""
+    both kernel runs, and the runs by tag."""
     kernels.reset_launches()
-    short = run_cli(root, "short.fastq", "short_kernel", host_scoring=False)
+    short = run_cli(root, SHORT, "short_kernel", host_scoring=False)
     main_launches = dict(kernels.LAUNCHES)
     print(f"[cli] kernel launches in the main path (100,000 reads of 150 bp): {main_launches}", flush=True)
     if main_launches["banded_i16"] <= 0:
         raise AssertionError("banded_i16 was not launched by the main path")
-    long_ = run_cli(root, "long.fastq", "long_kernel", host_scoring=False)
+    long_ = run_cli(root, LONG, "long_kernel", host_scoring=False)
     launches = dict(kernels.LAUNCHES)
     print(f"[cli] kernel launches in both kernel-scored CLI runs: {launches}", flush=True)
     for name in ("banded_i16", "banded_f32"):  # the engine's gathered scorer
@@ -714,17 +752,28 @@ def cli_phase(root: Path, kernels) -> tuple[dict, dict, dict]:
         if run["aligned_fraction"] < 0.99:
             raise AssertionError(f"aligned fraction {run['aligned_fraction']} < 0.99")
     kernels.reset_launches()
-    short_host = run_cli(root, "short.fastq", "short_host", host_scoring=True)
-    long_host = run_cli(root, "long.fastq", "long_host", host_scoring=True)
+    short_host = run_cli(root, SHORT, "short_host", host_scoring=True)
+    long_host = run_cli(root, LONG, "long_host", host_scoring=True)
     if any(kernels.LAUNCHES.values()):
         raise AssertionError(f"the host-scored runs launched kernels: {kernels.LAUNCHES}")
     print("[cli] host-scored runs launched no kernel", flush=True)
     for kernel_run, host_run, tag in ((short, short_host, "short"), (long_, long_host, "long")):
-        for out in ("sam", "vcf", "mutations"):
-            if kernel_run[out] != host_run[out]:
-                raise AssertionError(f"{tag}: {out} differs from the host-scored run")
-        print(f"[cli] {tag}: SAM, VCF and mutations byte-identical to the host-scored run", flush=True)
-    return main_launches, launches, short
+        same_outputs(kernel_run, host_run, f"{tag}: the kernel-scored run vs the host-scored run")
+    runs = {"short_kernel": short, "long_kernel": long_, "short_host": short_host, "long_host": long_host}
+    return main_launches, launches, runs
+
+
+def same_outputs(run: dict, twin: dict, what: str) -> None:
+    """Raises unless SAM, VCF and mutations of two runs are byte-identical,
+    with the first differing lines."""
+    for out in ("sam", "vcf", "mutations"):
+        if run[out] != twin[out]:
+            diff = difflib.unified_diff(
+                twin[out].decode().splitlines(), run[out].decode().splitlines(), lineterm="", n=0
+            )
+            shown = "\n".join(line[:300] for line in itertools.islice(diff, 12))
+            raise AssertionError(f"{what}: {out} differs:\n{shown}")
+    print(f"[cli] {what}: SAM, VCF and mutations byte-identical", flush=True)
 
 
 def device_pileup_phase(root: Path, kernels, short: dict) -> dict:
@@ -734,7 +783,7 @@ def device_pileup_phase(root: Path, kernels, short: dict) -> dict:
     kernels.reset_launches()
     os.environ["MAPPER_TPU_DEVICE_PILEUP"] = "1"
     try:
-        run = run_cli(root, "short.fastq", "short_device_pileup", host_scoring=False)
+        run = run_cli(root, SHORT, "short_device_pileup", host_scoring=False)
     finally:
         os.environ.pop("MAPPER_TPU_DEVICE_PILEUP", None)
     launches = dict(kernels.LAUNCHES)
@@ -744,18 +793,171 @@ def device_pileup_phase(root: Path, kernels, short: dict) -> dict:
     rows = run["device_pileup_rows"]
     if not rows:
         raise AssertionError(f"no rows were counted on the device: {rows}")
-    for out in ("sam", "vcf", "mutations"):
-        if run[out] != short[out]:
-            diff = difflib.unified_diff(
-                short[out].decode().splitlines(), run[out].decode().splitlines(), lineterm="", n=0
-            )
-            shown = "\n".join(line[:300] for line in itertools.islice(diff, 12))
-            raise AssertionError(f"device pileup: {out} differs from the host-pileup run:\n{shown}")
+    same_outputs(run, short, "device pileup: the device-pileup run vs the host-pileup run")
+    print(f"[pileup] {rows} rows counted on the card ({rows / run['queries']:.4f} of reads)", flush=True)
+    return launches
+
+
+def load_database(root: Path):
+    """The reference's index as the CLI builds it (the same sizes), read from
+    the CLI runs' index cache."""
+    from mapper_tpu_torch.index.database import HashBlockDatabase, choose_max_duplication_length
+    from mapper_tpu_torch.index.dircache import DirCache
+    from mapper_tpu_torch.io import fastx
+    from mapper_tpu_torch.sequence import SequenceDatabase, sort_and_complement
+
+    provider = fastx.load_from([str(root / "ref.fasta")], keep_quality=False)
+    seq_db = SequenceDatabase(sort_and_complement(b.build() for b in provider))
+    return HashBlockDatabase(
+        seq_db, hint_max_interesting_size=choose_max_duplication_length(seq_db),
+        cache_dir=DirCache(str(root / "index_cache")),
+    )
+
+
+def candidate_columns(table, skip) -> list:
+    import numpy as np
+
+    keep = ~np.isin(table.read_id, np.asarray(skip, dtype=np.int64))
+    return [np.asarray(c)[keep] for c in (table.read_id, table.reversed_, table.ref_seq_index,
+                                          table.offset, table.votes)]
+
+
+def device_candidates_programs(root: Path, params, device) -> dict:
+    """The device-candidates programs on the first DC_READS reads of the
+    150 bp run, with the engine's band and half-windows: the candidates
+    program against the host pass (every read not flagged for fallback),
+    the fused program on the card against the same program on the CPU
+    (torch.equal over its whole int32 output); the programs' CUDA-event
+    times and host-clock times (issue and device, synchronized), the host
+    pass's wall time.  Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from mapper_tpu_torch.batch import device_candidates as dc
+    from mapper_tpu_torch.batch.candidates import ReadBatch, generate_candidates
+    from mapper_tpu_torch.batch.engine import upload_reference
+    from mapper_tpu_torch.sequence import Sequence
+
+    t0 = time.time()
+    db = load_database(root)
+    lines = (root / "short.fastq").read_text().splitlines()[: 4 * DC_READS]
+    batch = ReadBatch.from_sequences([Sequence.from_text(lines[i][1:], lines[i + 1]) for i in range(0, len(lines), 4)])
+    print(f"[device-candidates] index loaded, {batch.num_reads} reads in {time.time() - t0:.1f} s", flush=True)
+    max_indel = np.maximum(0, ((batch.lengths * params.max_error_rate - params.deletion_start_penalty)
+                               / params.deletion_extension_penalty).astype(np.int64))
+    band = 64 if int(max_indel.max()) <= 31 else 128
+    shift = np.minimum(max_indel, band // 2)
+
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = generate_candidates(batch, db)
+        host_s.append(time.perf_counter() - t0)
+    table, fallback = dc.generate_candidates_device(batch, db, device)
+    for got, want in zip(candidate_columns(table, fallback), candidate_columns(host, fallback)):
+        if not np.array_equal(got, want):
+            raise AssertionError("device candidates != the host pass on the reads not flagged for fallback")
+    print(f"[device-candidates] the candidates program on the card equals the host pass on "
+          f"{batch.num_reads - len(fallback)} reads; {len(fallback)} reads flagged for fallback; "
+          f"{len(table)} rows", flush=True)
+
+    inputs = dc.fused_inputs(batch, db, upload_reference(db.get_sequence_database().concatenated_codes(), device),
+                             shift, band)
+    cpu_inputs = dc.fused_inputs(
+        batch, db, upload_reference(db.get_sequence_database().concatenated_codes(), torch.device("cpu")),
+        shift, band,
+    )
+    got = dc.fused_program(inputs, params, band).cpu()
+    t0 = time.time()
+    want = dc.fused_program(cpu_inputs, params, band)
+    cpu_s = time.time() - t0
+    if not torch.equal(got, want):
+        differ = int((got != want).sum())
+        raise AssertionError(f"the fused program on the card != its CPU run ({differ} of {got.numel()} words)")
+    print(f"[device-candidates] the fused program's {got.numel()} int32 words on the card equal its CPU run "
+          f"(plain scorer, {cpu_s:.1f} s on the host)", flush=True)
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def candidates():
+        return dc.candidates_program(inputs)
+
+    def fused():
+        return dc.fused_program(inputs, params, band)
+
+    numbers = {
+        "reads": batch.num_reads, "band": band, "read_width": int(inputs["codes"].shape[1]),
+        "scored_rows": dc.score_rows(batch.num_reads), "candidate_rows": len(table),
+        "fallback_reads": int(len(fallback)),
+        "candidates_ms": cuda_ms(candidates, 10), "fused_ms": cuda_ms(fused, 10),
+        "candidates_wall_ms": wall_ms(candidates, 5), "fused_wall_ms": wall_ms(fused, 5),
+        "host_candidates_ms": [t * 1e3 for t in host_s],
+    }
     print(
-        f"[pileup] {rows} rows counted on the card ({rows / run['queries']:.4f} of reads); "
-        "SAM, VCF and mutations byte-identical to the host-pileup run",
+        f"[device-candidates] {batch.num_reads} reads: candidates program {numbers['candidates_ms']:.3f} ms "
+        f"(CUDA events; {numbers['candidates_wall_ms']:.3f} ms host clock, synchronized), fused program "
+        f"{numbers['fused_ms']:.3f} ms ({numbers['fused_wall_ms']:.3f} ms), host generate_candidates "
+        f"{min(host_s) * 1e3:.3f} ms (best of 3 wall times)",
         flush=True,
     )
+    return numbers
+
+
+def device_candidates_phase(root: Path, kernels, runs: dict) -> dict:
+    """The 100,000-read and 2,000-read CLI runs with
+    MAPPER_TPU_DEVICE_CANDIDATES=1, launch counts read around each: every
+    single-end chunk must take the fused path, SAM, VCF and mutations must be
+    byte-identical to the host-scored twins.  Returns the launch counts of
+    both runs and their align phases beside the kernel-scored runs'."""
+    launches, align = {}, {}
+    os.environ["MAPPER_TPU_DEVICE_CANDIDATES"] = "1"
+    try:
+        for tag, queries, kernel in (("short", SHORT, "banded_i16"), ("long", LONG, "banded_f32")):
+            kernels.reset_launches()
+            run = run_cli(root, queries, f"{tag}_fused", host_scoring=False)
+            counts = dict(kernels.LAUNCHES)
+            print(f"[device-candidates] kernel launches in the fused {tag} run: {counts}", flush=True)
+            if counts[kernel] <= 0:
+                raise AssertionError(f"{kernel} was not launched by the fused {tag} run")
+            fused, chunks = run["fused_chunks"] or (0, 0)
+            if not 0 < fused == chunks:
+                raise AssertionError(f"fused {tag} run: {fused} of {chunks} chunks took the fused path")
+            same_outputs(run, runs[f"{tag}_host"], f"{tag}: the fused run vs the host-scored run")
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            align[tag] = {"fused_chunks": fused, "fused_align_s": run["align_seconds"],
+                          "kernel_scored_align_s": runs[f"{tag}_kernel"]["align_seconds"],
+                          "host_scored_align_s": runs[f"{tag}_host"]["align_seconds"]}
+            print(f"[device-candidates] {tag}: {fused} of {chunks} chunks fused; align phase fused "
+                  f"{run['align_seconds']:.3f} s, kernel-scored {align[tag]['kernel_scored_align_s']:.3f} s, "
+                  f"host-scored {align[tag]['host_scored_align_s']:.3f} s", flush=True)
+    finally:
+        os.environ.pop("MAPPER_TPU_DEVICE_CANDIDATES", None)
+    return {"launches": launches, "align": align}
+
+
+def twin_phase(root: Path, kernels, query_args: list[str], tag: str, kernel: str) -> dict:
+    """One kernel-scored CLI run (launch counts read around it; `kernel` must
+    launch) and its host-scored twin (no launch), byte-identical.  Returns
+    the kernel run's launch counts."""
+    kernels.reset_launches()
+    run = run_cli(root, query_args, f"{tag}_kernel", host_scoring=False)
+    launches = dict(kernels.LAUNCHES)
+    print(f"[{tag}] kernel launches: {launches}", flush=True)
+    if launches[kernel] <= 0:
+        raise AssertionError(f"{kernel} was not launched by the {tag} run")
+    kernels.reset_launches()
+    twin = run_cli(root, query_args, f"{tag}_host", host_scoring=True)
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"the host-scored {tag} run launched kernels: {kernels.LAUNCHES}")
+    same_outputs(run, twin, f"{tag}: the kernel-scored run vs the host-scored run")
     return launches
 
 
@@ -859,15 +1061,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = Path(tmp)
         t0 = time.time()
-        simulate_inputs(root, 4_600_000, 100_000, 2_000)
+        simulate_inputs(root, 4_600_000, 100_000, 2_000, 20_000, 500)
         print(f"[data] simulated in {time.time() - t0:.1f} s", flush=True)
         os.environ["MAPPER_TPU_TORCH_DEVICE"] = "cuda"
-        main_launches, cli_launches, short = cli_phase(root, kernels)
-        pileup_launches = device_pileup_phase(root, kernels, short)
+        main_launches, cli_launches, runs = cli_phase(root, kernels)
+        pileup_launches = device_pileup_phase(root, kernels, runs["short_kernel"])
+        programs = device_candidates_programs(root, params, device)
+        fused = device_candidates_phase(root, kernels, runs)
+        paired_launches = twin_phase(root, kernels, PAIRED, "paired", "banded_i16")
+        split_launches = twin_phase(root, kernels, SPLIT, "split_queries", "banded_f32")
 
+    print(json.dumps({"device_candidates": {**programs, "cli": fused["align"], "gpu": gpu}}))
     by_path = {
         "main_path": main_launches, "cli": cli_launches, "host_window": window_launches,
         "probe_i16": probe_launches, "device_pileup": pileup_launches,
+        "device_candidates": fused["launches"], "paired": paired_launches, "split_queries": split_launches,
     }
     entries = kernel_entries(i16, f32, host_rows, host_extra, probe_rows, by_path)
     print(json.dumps({"kernels": entries}))

@@ -23,7 +23,10 @@ Pipeline (single-end fast path):
 The host stages and the modules they call are the port's own copies of the
 JAX package's code; only the device sites differ.
 `MAPPER_TPU_HOST_SCORING=1` scores short reads with the native exact DP on
-the host instead of the kernel.
+the host instead of the kernel.  `device_candidates=True` (or
+`MAPPER_TPU_DEVICE_CANDIDATES=1`) replaces steps 1-3 of single-end chunks
+with one device program (batch/device_candidates.py) that also scores every
+kept candidate row.
 """
 
 from __future__ import annotations
@@ -84,12 +87,10 @@ class BatchAligner:
     ):
         if mesh is not None:
             raise NotImplementedError("multi-device scoring is not ported yet")
-        if device_candidates or (
-            device_candidates is None
-            and os.environ.get("MAPPER_TPU_DEVICE_CANDIDATES") == "1"
-        ):
-            raise NotImplementedError("the fused device-candidates path is not ported yet")
         self.device = torch.device(device)
+        # the fused device-candidates path (batch/device_candidates.py) is
+        # opt-in: device_candidates=True or MAPPER_TPU_DEVICE_CANDIDATES=1
+        self.device_candidates = device_candidates
         self.reference_index = reference_index
         self.database = reference_index.hashblock_database
         self.seq_db = self.database.get_sequence_database()
@@ -110,6 +111,10 @@ class BatchAligner:
         self.concat = self.seq_db.concatenated_codes()
         self.stats_fallback_reads = 0
         self.stats_batch_reads = 0
+        # single-end chunks dispatched, and those the fused device-candidates
+        # path took
+        self.stats_single_end_chunks = 0
+        self.stats_fused_chunks = 0
         # queries fully resolved by the batch fast path (no exact-worker
         # involvement) — the analog of the reference's "Immediately accepted"
         # optimistic fast-path counter (Mapper.java:843-845)
@@ -1261,6 +1266,38 @@ class BatchAligner:
         shift = np.minimum(max_indel, band // 2)
 
         mark("setup")
+        with self._stats_lock:
+            self.stats_single_end_chunks += 1
+
+        # fused device path: pyramid + index lookup + voting + banded scoring
+        # in one device program with one copy back; the host's only per-read
+        # work left is decisions + emission
+        if self._use_device_candidates():
+            from mapper_tpu_torch.batch import device_candidates as _dc
+
+            fused = _dc.fused_candidates_scores(
+                batch,
+                self.database,
+                self._concat_device(),
+                p,
+                shift,
+                band,
+                max_candidates_per_read=self.max_candidates_per_read,
+                lock=self._upload_lock,
+            )
+            if fused is not None:
+                with self._stats_lock:
+                    self.stats_fused_chunks += 1
+                mark("fused dispatch")
+                return {
+                    "queries": queries,
+                    "batch": batch,
+                    "num_reads": num_reads,
+                    "fused": fused[1],
+                    "shift": shift,
+                    "band": band,
+                    "mark": mark,
+                }
 
         # candidate voting runs on the host (native C++/numpy)
         table = generate_candidates(
@@ -1566,6 +1603,15 @@ class BatchAligner:
         if ic.shape[0]:
             ungapped[ic] = self._ungapped_penalties(seqs, table, ic)
         return {"host_scored": (ungapped, banded), "native_raw": native_raw}
+
+    def _use_device_candidates(self) -> bool:
+        """The fused device-candidates path is opt-in
+        (MAPPER_TPU_DEVICE_CANDIDATES=1 or device_candidates=True), as in the
+        JAX engine: it gives the host path's results and moves the host
+        candidate pass onto the device."""
+        if self.device_candidates is not None:
+            return self.device_candidates
+        return os.environ.get("MAPPER_TPU_DEVICE_CANDIDATES") == "1"
 
     def _concat_device(self) -> torch.Tensor:
         """The concatenated reference codes on `self.device`, uploaded once
@@ -1914,20 +1960,42 @@ class BatchAligner:
         num_reads = ctx["num_reads"]
         mark = ctx["mark"]
 
-        table = ctx["table"]
-        geom = ctx["geom"]
-        valid = geom["valid"]
-        at_edge = geom["at_edge"]
-        n_per_cand = geom["n_per_cand"]
-        pens_lookup = ctx["u_all"]
-        # certificate rows scored on host (score == exact ungapped, clean
-        # by construction); device rows filled from the compacted call
-        ungapped = np.where(ctx["skip"], pens_lookup, np.inf)
-        banded = ungapped.copy()
-        if ctx["sctx"] is not None:
-            d_ung, d_banded = self._finish_scores(ctx["sctx"])
-            ungapped[ctx["dev_rows"]] = d_ung
-            banded[ctx["dev_rows"]] = d_banded
+        if "fused" in ctx:
+            table, fallback_ids, banded, ung_raw = ctx["fused"]()
+            mark("fused fetch")
+            # replay the device's integer window geometry in numpy
+            geom = self._window_geometry(batch, table, ctx["shift"])
+            valid = geom["valid"]
+            at_edge = geom["at_edge"]
+            n_per_cand = geom["n_per_cand"]
+            win_start_local = np.maximum(0, table.offset - ctx["shift"][table.read_id])
+            lane = (table.offset - win_start_local).astype(np.int64)
+            lane_valid = (lane >= 0) & (lane < ctx["band"])
+            ungapped = np.where(geom["in_contig"] & lane_valid, ung_raw, np.inf)
+            if len(fallback_ids):
+                fallback_reads = np.zeros(num_reads, dtype=bool)
+                fallback_reads[fallback_ids] = True
+            else:
+                fallback_reads = None
+            fused_mask = fallback_reads
+            pens_lookup = None
+        else:
+            table = ctx["table"]
+            geom = ctx["geom"]
+            valid = geom["valid"]
+            at_edge = geom["at_edge"]
+            n_per_cand = geom["n_per_cand"]
+            fallback_reads = None
+            fused_mask = None
+            pens_lookup = ctx["u_all"]
+            # certificate rows scored on host (score == exact ungapped, clean
+            # by construction); device rows filled from the compacted call
+            ungapped = np.where(ctx["skip"], pens_lookup, np.inf)
+            banded = ungapped.copy()
+            if ctx["sctx"] is not None:
+                d_ung, d_banded = self._finish_scores(ctx["sctx"])
+                ungapped[ctx["dev_rows"]] = d_ung
+                banded[ctx["dev_rows"]] = d_banded
         mark("scoring")
         # wide-band gate (the single-end analog of the paired path's
         # certified_pair): a read whose indel budget exceeds the banded
@@ -1960,6 +2028,10 @@ class BatchAligner:
             np.minimum.at(best_u, table.read_id, ungapped)
             sound = best_u + p.max_penalty_span + EPS < out_band_min
             wide_fallback = wide & ~sound
+            if fallback_reads is None:
+                fallback_reads = wide_fallback
+            else:
+                fallback_reads = fallback_reads | wide_fallback
         else:
             wide_fallback = None
         # --- per-read decisions (vectorized over the candidate table) ----
@@ -2008,8 +2080,8 @@ class BatchAligner:
         GAP_MARGIN = 0.05
         reason_map: dict[int, str] = {}
         gap_reads = bad_reads & (best_per_read <= read_max_allowed - GAP_MARGIN)
-        if wide_fallback is not None:
-            gap_reads &= ~wide_fallback
+        if fallback_reads is not None:
+            gap_reads &= ~fallback_reads
         if np.any(gap_reads):
             # host-scored chunks already ran the exact DP on every dev row
             # with wave-1-identical inputs (same window, rate, prediction);
@@ -2125,16 +2197,19 @@ class BatchAligner:
                 self._finalize_gap_jobs(jobs, results, best_per_read, GAP_MARGIN)
         emit_sorted = emit[order]
         eligible = nonempty & ~bad_reads & (emit_counts > 0)
-        if wide_fallback is not None:
-            eligible &= ~wide_fallback
+        if fallback_reads is not None:
+            eligible &= ~fallback_reads
         # batched exact float64 penalties for every emitted row of eligible
         # reads (one vectorized pass instead of per-read block sums)
         rows_flat = order[emit_sorted & eligible[read_sorted]]
         reads = [q.get_sequence(0) for q in queries]
-        # eligible emitted rows are in-contig (off-contig rows have infinite
-        # ungapped, so emitting them flags the read bad), and the dispatch
-        # stage already computed their exact float64 penalties
-        pens_flat = pens_lookup[rows_flat]
+        if pens_lookup is not None:
+            # eligible emitted rows are in-contig (off-contig rows have
+            # infinite ungapped, so emitting them flags the read bad), and the
+            # dispatch stage already computed their exact float64 penalties
+            pens_flat = pens_lookup[rows_flat]
+        else:
+            pens_flat = self._ungapped_penalties(reads, table, rows_flat)
         rid_flat = table.read_id[rows_flat]
         ebounds = np.searchsorted(rid_flat, np.arange(num_reads + 1)).tolist()
 
@@ -2262,6 +2337,8 @@ class BatchAligner:
                 continue
             if r in reason_map:
                 reason = reason_map[r]
+            elif fused_mask is not None and fused_mask[r]:
+                reason = "kernel_bail"
             elif wide_fallback is not None and wide_fallback[r]:
                 reason = "wide_band"
             elif bad_reads[r]:

@@ -656,6 +656,12 @@ def run(
         f"({num_loaded / max(align_seconds, 1e-9):.1f} queries/s)"
     )
 
+    if engine == "batch" and engine_obj._use_device_candidates():
+        log(
+            f"Device candidates: {engine_obj.stats_fused_chunks} of "
+            f"{engine_obj.stats_single_end_chunks} single-end chunks took the fused path"
+        )
+
     # --- outputs ---------------------------------------------------------
 
     device_pileup = getattr(engine_obj, "device_pileup", None)

@@ -49,10 +49,13 @@ def _run(main, inputs, out_dir, query_args):
     return {name: (out_dir / name).read_bytes() for name in OUTPUTS.values()}
 
 
-@pytest.mark.parametrize("kind", ["single", "paired", "exact"])
+@pytest.mark.parametrize("kind", ["single", "paired", "exact", "fused"])
 def test_cli_outputs_byte_identical(monkeypatch, tmp_path, inputs, kind):
     monkeypatch.setenv("MAPPER_TPU_TORCH_DEVICE", "cpu")
-    if kind == "single":
+    if kind in ("single", "fused"):
+        # fused: both packages' fused device-candidates paths
+        if kind == "fused":
+            monkeypatch.setenv("MAPPER_TPU_DEVICE_CANDIDATES", "1")
         query_args = ["--queries", str(inputs / "reads.fastq")]
     elif kind == "exact":  # the sequential engine: host code on both sides
         query_args = ["--queries", str(inputs / "reads.fastq"), "--engine", "exact"]

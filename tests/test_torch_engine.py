@@ -30,6 +30,17 @@ from mapper_tpu_torch.simulate import simulate_reads
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain scorer's many small tensor operations run no faster on
+    several threads, and the suite runs in several processes at once, whose
+    thread pools would contend for the cores: one intra-op thread here."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def workload():
     rng = np.random.default_rng(2024)
@@ -153,13 +164,24 @@ def test_concurrent_batches_share_one_engine(workload):
     """process_batch from several threads against one engine (as the CLI's
     pool runs it): the results and the fallback-reason counts match serial
     runs, and the reference is uploaded once."""
+    _concurrent_batches(workload)
+
+
+def test_concurrent_fused_batches_share_one_engine(workload):
+    """As above on the fused device-candidates path, which also shares the
+    device index cache and the chunk counters between the threads."""
+    serial, engine = _concurrent_batches(workload, device_candidates=True)
+    assert engine.stats_fused_chunks == engine.stats_single_end_chunks == serial.stats_fused_chunks == 4
+
+
+def _concurrent_batches(workload, **kwargs):
     _, index, short, _, _ = workload
     params = AlignmentParameters.defaults()
     chunks = [short[i * 64 : (i + 1) * 64] for i in range(4)]
-    serial = BatchAligner(index, params, CPU)
+    serial = BatchAligner(index, params, CPU, **kwargs)
     want = [_sam(index, serial.process_batch(_queries(c))) for c in chunks]
 
-    engine = BatchAligner(index, params, CPU)
+    engine = BatchAligner(index, params, CPU, **kwargs)
     got = [None] * len(chunks)
     uploads = []
     real_upload = torch_engine.upload_reference
@@ -187,6 +209,7 @@ def test_concurrent_batches_share_one_engine(workload):
     assert got == want
     assert engine.stats_fallback_reasons == serial.stats_fallback_reasons
     assert len(uploads) == 1
+    return serial, engine
 
 
 def test_upload_reference(workload):
@@ -197,20 +220,35 @@ def test_upload_reference(workload):
     assert np.array_equal(t.numpy(), concat)
 
 
-@pytest.mark.parametrize(
-    "kwargs,env",
-    [
-        ({"mesh": object()}, {}),
-        ({"device_candidates": True}, {}),
-        ({}, {"MAPPER_TPU_DEVICE_CANDIDATES": "1"}),
-    ],
-)
+@pytest.mark.parametrize("kwargs,env", [({"mesh": object()}, {})])
 def test_unported_options_raise(workload, monkeypatch, kwargs, env):
     _, index, _, _, _ = workload
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError):
         BatchAligner(index, AlignmentParameters.defaults(), CPU, **kwargs)
+
+
+@pytest.mark.parametrize(
+    "kwargs,env",
+    [({"device_candidates": True}, {}), ({}, {"MAPPER_TPU_DEVICE_CANDIDATES": "1"})],
+    ids=["keyword", "environment"],
+)
+def test_device_candidates_option_takes_fused_path(workload, monkeypatch, kwargs, env):
+    """The keyword and the environment variable each send every single-end
+    chunk through the fused device-candidates path, whose SAM equals the
+    host path's; without either, no chunk takes it."""
+    _, index, short, _, _ = workload
+    params = AlignmentParameters.defaults()
+    reads = short[:160]
+    host_engine = BatchAligner(index, params, CPU)
+    host = _sam(index, host_engine.process_batch(_queries(reads)))
+    assert host_engine.stats_fused_chunks == 0 < host_engine.stats_single_end_chunks
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    engine = BatchAligner(index, params, CPU, **kwargs)
+    assert _sam(index, engine.process_batch(_queries(reads))) == host
+    assert engine.stats_fused_chunks == engine.stats_single_end_chunks > 0
 
 
 def test_device_pileup_raises_if_set(workload):

@@ -22,6 +22,7 @@ import sys
 sys.modules["jax"] = None
 sys.modules["mapper_tpu"] = None
 import numpy as np, torch
+torch.set_num_threads(1)  # the suite runs in several processes at once
 import mapper_tpu_torch, mapper_tpu_torch.cli, mapper_tpu_torch.align.kernels
 from mapper_tpu_torch import Api, AlignmentParameters
 from mapper_tpu_torch.batch.engine import BatchAligner
@@ -38,6 +39,12 @@ engine = BatchAligner(index, AlignmentParameters.defaults(), torch.device("cpu")
 results = engine.process_batch([Query(Sequence.from_text(n, t)) for n, t in reads])
 aligned = sum(1 for r in results if r is not None and any(r.get_alignments()))
 assert aligned >= 14, aligned
+# the fused device-candidates path, on the CPU
+fused = BatchAligner(index, AlignmentParameters.defaults(), torch.device("cpu"), device_candidates=True)
+fused_results = fused.process_batch([Query(Sequence.from_text(n, t)) for n, t in reads])
+assert fused.stats_fused_chunks == 1
+assert [r is not None and any(r.get_alignments()) for r in fused_results] == [
+    r is not None and any(r.get_alignments()) for r in results]
 assert sys.modules["jax"] is None and sys.modules["mapper_tpu"] is None
 assert not [m for m in sys.modules if m.startswith(("jax.", "jaxlib", "mapper_tpu."))]
 print("OK", aligned)
