@@ -70,7 +70,21 @@ Phases (each raises on failure; nothing is caught):
    `benchmarks.simlib.simulate_paired`, --spacing 100 50) and a
    --split-queries-past-size 1500 run (500 reads of 3,000 bp, scored in
    1,500 bp pieces by banded_f32), launch counts read around each, each
-   byte-identical to its host-scored twin.
+   byte-identical to its host-scored twin;
+9. the parallel slice, on a mesh of two shards of the one card
+   (`parallel/mesh.py`; each shard on a CUDA stream of its own), launch
+   counts read around each path: `sharded_banded_scores` on the host-window
+   rows right after phase 4 (K3, K1 and K2 once a shard, equal to
+   `banded_scores`); the engine on the mesh against the one-device engine,
+   batch by batch as the CLI batches, on the 100,000 reads of 150 bp
+   (banded_i16 twice per chunk that reaches the scorer) with a DevicePileup
+   on each (merged arrays equal) and on the 2,000 reads of 1,000 bp
+   (banded_f32), every read's summary equal; `ShardedIndex` over the 4.6 Mb
+   reference against the host merged-index walk for the seeds of the first
+   4,096 reads; the CLI as two processes on the card (`--num-processes 2`,
+   started together, with the file barrier and with a gloo
+   `--coordinator`), all five outputs byte-identical to the one-process run
+   of phase 5; and `--devices 2`, the usage error with one card.
 
 The line before the last but one lists the kernels as JSON, each with its
 time, plain time, bound, what bounds it, library time (or null) and its
@@ -961,6 +975,316 @@ def twin_phase(root: Path, kernels, query_args: list[str], tag: str, kernel: str
     return launches
 
 
+# ---- the parallel slice: a mesh of two shards on one card, two processes --
+
+MESH_BATCH_BASES = 2_000_000  # the CLI's batch (its max_bases_per_batch)
+# a subprocess of the multi-process CLI: the CLI's entry, then this process's
+# kernel launches as JSON on stdout (the JAX package may not be imported)
+MULTI_PROCESS_ENTRY = (
+    "import json, sys\n"
+    "sys.modules['jax'] = None\n"
+    "sys.modules['mapper_tpu'] = None\n"
+    "from mapper_tpu_torch import cli\n"
+    "from mapper_tpu_torch.align import kernels\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print(json.dumps(kernels.LAUNCHES))\n"
+    "sys.exit(rc)\n"
+)
+MULTI_PROCESS_TIMEOUT_S = 300
+
+
+def sharded_scores_phase(params, inputs, kernels, mesh) -> dict:
+    """`parallel.mesh.sharded_banded_scores` on the host-window rows over
+    the two-shard mesh, launch counts read around it: each (width, band)
+    must launch its kernel once a shard (K3 at width 192, band 64; K1 at
+    band 128; K2 at width 1024) and equal `banded_scores` on the whole
+    batch.  Returns the launch counts."""
+    import torch
+
+    from mapper_tpu_torch.align import banded
+    from mapper_tpu_torch.parallel.mesh import sharded_banded_scores
+
+    want = {key: banded.banded_scores(*rows, params, band=key[1], chunk=CHUNK) for key, (_, rows) in inputs.items()}
+    kernels.reset_launches()
+    got = {key: sharded_banded_scores(mesh, params, key[1])(*rows) for key, (_, rows) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"[sharded-scores] kernel launches: {launches}", flush=True)
+    expected = {"banded_i16_packed": 2, "banded_i16": 2, "banded_f32": 4}
+    if any(launches[name] != n for name, n in expected.items()):
+        raise AssertionError(f"sharded_banded_scores launches {launches}, expected {expected}")
+    for key, scores in got.items():
+        if not torch.equal(scores, want[key]):
+            raise AssertionError(f"sharded_banded_scores at width {key[0]}, band {key[1]} != banded_scores")
+    print("[sharded-scores] every (width, band) over two shards equals banded_scores on the whole batch",
+          flush=True)
+    return launches
+
+
+def reference_index(root: Path):
+    """The index the CLI aligns against, from the CLI runs' cache, with its
+    duplication detector."""
+    from mapper_tpu_torch.api import ReferenceIndex
+    from mapper_tpu_torch.index.database import choose_max_duplication_length, choose_min_duplication_length
+    from mapper_tpu_torch.index.duplication import DuplicationDetector
+
+    db = load_database(root)
+    seq_db = db.get_sequence_database()
+    dups = DuplicationDetector(db, choose_min_duplication_length(seq_db), choose_max_duplication_length(seq_db),
+                               min_num_interesting_copies=2, window_size=1000)
+    dups.ensure_detected()
+    return ReferenceIndex(seq_db, db, dups)
+
+
+def cli_batches(path: Path):
+    """The queries of a FASTQ file in the CLI's batches (MESH_BATCH_BASES)."""
+    from mapper_tpu_torch.align.query import Query
+    from mapper_tpu_torch.sequence import Sequence
+
+    lines = path.read_text().splitlines()
+    batches, batch, bases = [], [], 0
+    for i in range(0, len(lines), 4):
+        batch.append(Query(Sequence.from_text(lines[i][1:], lines[i + 1])))
+        bases += len(lines[i + 1])
+        if bases >= MESH_BATCH_BASES:
+            batches.append(batch)
+            batch, bases = [], 0
+    if batch:
+        batches.append(batch)
+    return batches
+
+
+def summaries(results) -> list:
+    """Each read's alignments: penalty and components, references named."""
+    return [
+        None if r is None else tuple(
+            tuple((a.get_penalty(), tuple((c.get_sequence_b().name, *c.content_key()[1:])
+                                          for c in a.get_components())) for a in alist)
+            for alist in r.get_alignments()
+        )
+        for r in results
+    ]
+
+
+def mesh_engine_phase(root: Path, params, kernels, mesh) -> tuple[dict, dict]:
+    """The engine on a two-shard mesh of one card against the one-device
+    engine, batch by batch as the CLI batches, in turns (one device, mesh,
+    mesh, one device): the 100,000 reads of 150 bp (banded_i16, two launches
+    per chunk that reaches the scorer, counted around the first mesh run)
+    with a DevicePileup on every engine, the first mesh run's merging to the
+    first one-device run's arrays, then the 2,000 reads of 1,000 bp
+    (banded_f32).  Every run's summaries must equal the first one-device
+    run's.  Returns the first mesh runs' launch counts and the runs' times."""
+    import numpy as np
+    import torch
+
+    from mapper_tpu_torch.align import banded
+    from mapper_tpu_torch.batch.device_pileup import DevicePileup
+    from mapper_tpu_torch.batch.engine import BatchAligner
+    from mapper_tpu_torch.pileup import MatchDatabase
+
+    device = mesh[0]
+    index = reference_index(root)
+    seq_db = index.sequence_database
+    sharded_calls = []
+    inner = banded._gathered_on_mesh
+
+    def counted(mesh_arg, *args):
+        sharded_calls.append(len(args[2][0]))
+        return inner(mesh_arg, *args)
+
+    def run(engine, batches):
+        results = []
+        t0 = time.time()
+        for batch in batches:
+            results += engine.process_batch(batch, notify=False)
+        torch.cuda.synchronize()
+        return summaries(results), time.time() - t0
+
+    banded._gathered_on_mesh = counted
+    launches, times = {}, {}
+    try:
+        for tag, fastq, kernel in (("short", "short.fastq", "banded_i16"), ("long", "long.fastq", "banded_f32")):
+            batches = cli_batches(root / fastq)
+            engines = []
+
+            def engine(on_mesh):
+                e = BatchAligner(index, params, mesh=mesh) if on_mesh else BatchAligner(index, params, device)
+                if tag == "short":
+                    e.device_pileup = DevicePileup(seq_db, 0.1, mesh=mesh) if on_mesh else DevicePileup(seq_db, 0.1, device)
+                engines.append(e)
+                return e
+
+            want, t_one = run(engine(False), batches)
+            del sharded_calls[:]
+            kernels.reset_launches()
+            got, t_mesh = run(engine(True), batches)
+            counts = dict(kernels.LAUNCHES)
+            # one launch a shard that has rows: two a chunk, one for a chunk of one row
+            expected = sum(min(rows, len(mesh)) for rows in sharded_calls)
+            print(f"[mesh] {tag}: kernel launches on the mesh {counts}; {len(sharded_calls)} sharded scorer "
+                  f"calls ({sum(sharded_calls)} rows)", flush=True)
+            if not sharded_calls or counts[kernel] != expected:
+                raise AssertionError(f"mesh {tag}: {counts[kernel]} {kernel} launches for "
+                                     f"{len(sharded_calls)} sharded scorer calls, expected {expected}")
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            got2, t_mesh2 = run(engine(True), batches)
+            want2, t_one2 = run(engine(False), batches)
+            for what, other in (("mesh", got), ("second mesh", got2), ("second one-device", want2)):
+                differ = [i for i, (x, y) in enumerate(zip(other, want)) if x != y]
+                if len(other) != len(want) or differ:
+                    raise AssertionError(f"{tag}: {len(differ)} reads of the {what} run differ from the "
+                                         f"one-device engine's, first {differ[:5]}")
+            times[tag] = {"one_device_s": [t_one, t_one2], "mesh_s": [t_mesh, t_mesh2]}
+            aligned = sum(1 for x in want if x and any(x))
+            print(f"[mesh] {tag}: {len(want)} reads, {aligned} aligned, every summary of both mesh runs equal to "
+                  f"the one-device engine's; in turns one device {t_one:.3f} s, two shards {t_mesh:.3f} s, "
+                  f"two shards {t_mesh2:.3f} s, one device {t_one2:.3f} s", flush=True)
+            if tag == "short":
+                merged = []
+                for pileup in (engines[1].device_pileup, engines[0].device_pileup):
+                    db = MatchDatabase(0.1)
+                    pileup.merge_into(db)
+                    merged.append({s.name: p for s, p in db.group_by_position().items()})
+                rows = [e.device_pileup.num_rows_accumulated for e in engines[:2]]
+                if not rows[0] or rows[0] != rows[1] or merged[0].keys() != merged[1].keys():
+                    raise AssertionError(f"mesh pileup: {rows[0]} rows against {rows[1]}")
+                for name, p in merged[0].items():
+                    if not (np.array_equal(p.middle, merged[1][name].middle)
+                            and np.array_equal(p.end, merged[1][name].end)):
+                        raise AssertionError(f"mesh pileup of {name} != the one-device pileup")
+                print(f"[mesh] DevicePileup on two shards: {rows[0]} rows, merged arrays equal to the one-device "
+                      f"pileup's", flush=True)
+            del engines
+    finally:
+        banded._gathered_on_mesh = inner
+    return launches, times
+
+
+def sharded_index_phase(root: Path, mesh) -> float:
+    """`ShardedIndex` over the 4.6 Mb reference's merged index on the
+    two-shard mesh against the host merged-index walk, for the seeds of the
+    first 4,096 150 bp reads.  Returns its values_memory_ratio."""
+    import numpy as np
+
+    from mapper_tpu_torch.batch.candidates import ReadBatch, collect_batch_seeds
+    from mapper_tpu_torch.parallel.sharded_index import ShardedIndex
+    from mapper_tpu_torch.sequence import Sequence
+
+    db = load_database(root)
+    lines = (root / "short.fastq").read_text().splitlines()[: 4 * DC_READS]
+    batch = ReadBatch.from_sequences([Sequence.from_text(lines[i][1:], lines[i + 1]) for i in range(0, len(lines), 4)])
+    _, _, _, num_bp, key, _ = collect_batch_seeds(batch, db)
+    t0 = time.time()
+    sharded = ShardedIndex(db, mesh, k_match=12)
+    vals, counts, valid = sharded.lookup(num_bp, key)
+    seconds = time.time() - t0
+    merged = db.merged_index()
+    bins = merged["bases"][num_bp] + np.remainder(key, merged["capacities"][num_bp])
+    want_counts = merged["counts"][bins]
+    take = np.minimum(want_counts, np.minimum(merged["caps"][num_bp], 12))
+    j = np.arange(12)[None, :]
+    want_valid = j < take[:, None]
+    vidx = np.minimum(merged["offsets"][bins][:, None] + j, len(merged["values"]) - 1)
+    want_vals = np.where(want_valid, merged["values"][vidx], 0)
+    if not (np.array_equal(counts, want_counts) and np.array_equal(valid, want_valid)
+            and np.array_equal(vals, want_vals)):
+        raise AssertionError("ShardedIndex on two shards != the host merged-index walk")
+    print(f"[sharded-index] {len(key)} seeds of {batch.num_reads} reads: positions, counts and valid equal "
+          f"to the host walk ({int(valid.sum())} positions); values_memory_ratio "
+          f"{sharded.values_memory_ratio:.6f}; built and looked up in {seconds:.2f} s", flush=True)
+    return sharded.values_memory_ratio
+
+
+def multi_process_phase(root: Path, one_process: dict) -> tuple[dict, dict]:
+    """`python -m mapper_tpu_torch`'s CLI in two processes on the card
+    (`--num-processes 2`), started together on the 100,000-read input,
+    once with the file barrier and once with a gloo process group
+    (`--coordinator`): all five outputs must be byte-identical to the
+    one-process kernel-scored run.  Returns the processes' summed launch
+    counts and each run's align phases."""
+    import socket
+
+    out_names = {"--out-sam": "out.sam", "--out-vcf": "out.vcf", "--out-mutations": "mutations.txt",
+                 "--out-refs-map-count": "refs.txt", "--out-unaligned": "unaligned.fastq"}
+    env = dict(os.environ, MAPPER_TPU_TORCH_DEVICE="cuda")
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent) + os.pathsep + env.get("PYTHONPATH", "")
+    launches, align = {}, {}
+    for barrier in ("files", "coordinator"):
+        out = root / f"multi_process_{barrier}"
+        out.mkdir()
+        args = ["--reference", str(root / "ref.fasta"), "--queries", str(root / "short.fastq"),
+                "--cache-dir", str(root / "index_cache"), "--num-processes", "2"]
+        for flag, name in out_names.items():
+            args += [flag, str(out / name)]
+        if barrier == "coordinator":
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                args += ["--coordinator", f"127.0.0.1:{sock.getsockname()[1]}"]
+        t0 = time.time()
+        procs = [
+            subprocess.Popen([sys.executable, "-c", MULTI_PROCESS_ENTRY, *args, "--process-id", str(k)],
+                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for k in range(2)
+        ]
+        try:
+            results = [p.communicate(timeout=MULTI_PROCESS_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t0
+        phases = []
+        for k, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
+            if p.returncode != 0:
+                raise AssertionError(f"{barrier}: process {k} exited {p.returncode}\n{stderr[-3000:]}")
+            for name, n in json.loads(stdout.strip().splitlines()[-1]).items():
+                launches[name] = launches.get(name, 0) + n
+            m = re.search(r"Align phase: (\d+) queries in ([0-9.]+)s", stderr)
+            if m is None:
+                raise AssertionError(f"{barrier}: process {k} logged no align phase\n{stderr[-3000:]}")
+            phases.append({"queries": int(m.group(1)), "align_s": float(m.group(2))})
+        for name in out_names.values():
+            if (out / name).read_bytes() != (root / "short_kernel" / name).read_bytes():
+                raise AssertionError(f"{barrier}: {name} of the 2-process run != the 1-process run")
+        align[barrier] = {"processes": phases, "wall_s": wall,
+                          "one_process_align_s": one_process["align_seconds"]}
+        print(f"[multi-process] {barrier}: SAM, VCF, mutations, refs-map-count and unaligned byte-identical "
+              f"to the 1-process run; align phases " + ", ".join(
+                  f"process {k} {ph['queries']} queries in {ph['align_s']:.3f} s" for k, ph in enumerate(phases))
+              + f" (1 process: {one_process['align_seconds']:.3f} s); both processes {wall:.1f} s", flush=True)
+    if launches.get("banded_i16", 0) <= 0:
+        raise AssertionError(f"the multi-process runs launched no banded_i16: {launches}")
+    print(f"[multi-process] kernel launches in the four processes: {launches}", flush=True)
+    return launches, align
+
+
+def devices_beyond_the_card(root: Path) -> None:
+    """`--devices 2` with one card visible is the JAX CLI's usage error:
+    exit code 1, no run."""
+    import torch
+
+    from mapper_tpu_torch import cli
+
+    if torch.cuda.device_count() != 1:
+        print(f"[devices] {torch.cuda.device_count()} cards visible: the one-card usage error is not checked",
+              flush=True)
+        return
+    log = io.StringIO()
+    code = None
+    with contextlib.redirect_stderr(log):
+        try:
+            cli.main(["--reference", str(root / "ref.fasta"), "--queries", str(root / "long.fastq"),
+                      "--out-sam", str(root / "devices2.sam"), "--devices", "2"])
+        except SystemExit as e:  # usage_error exits; anything else propagates
+            code = e.code
+    if code != 1 or "--devices 2 requested but only 1 visible" not in log.getvalue():
+        raise AssertionError(f"--devices 2 on one card: exit {code}\n{log.getvalue()[-2000:]}")
+    print("[devices] --devices 2 on one card: usage error, exit code 1", flush=True)
+
+
 def _dp_rate(dp_type: str) -> dict:
     """The operation count and rate a DP kernel's bound used."""
     ops_per_cell, ops_per_s = DP_RATES[dp_type]
@@ -1056,6 +1380,11 @@ def main() -> int:
     probe_rows = compare_probes(device)
     probe_launches = probe_phase(kernels)
     window_launches = host_window_phase(params, inputs, kernels, f32_plain)
+    # the parallel slice's mesh: two shards on the one card
+    from mapper_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([device, device])
+    sharded_launches = sharded_scores_phase(params, inputs, kernels, mesh)
     del inputs
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1070,12 +1399,20 @@ def main() -> int:
         fused = device_candidates_phase(root, kernels, runs)
         paired_launches = twin_phase(root, kernels, PAIRED, "paired", "banded_i16")
         split_launches = twin_phase(root, kernels, SPLIT, "split_queries", "banded_f32")
+        mesh_launches, mesh_times = mesh_engine_phase(root, params, kernels, mesh)
+        values_ratio = sharded_index_phase(root, mesh)
+        multi_launches, multi_align = multi_process_phase(root, runs["short_kernel"])
+        devices_beyond_the_card(root)
 
     print(json.dumps({"device_candidates": {**programs, "cli": fused["align"], "gpu": gpu}}))
+    print(json.dumps({"parallel": {"mesh": str(mesh), "mesh_engine": mesh_times,
+                                   "sharded_index_values_memory_ratio": values_ratio,
+                                   "multi_process": multi_align, "gpu": gpu}}))
     by_path = {
         "main_path": main_launches, "cli": cli_launches, "host_window": window_launches,
         "probe_i16": probe_launches, "device_pileup": pileup_launches,
         "device_candidates": fused["launches"], "paired": paired_launches, "split_queries": split_launches,
+        "mesh": mesh_launches, "multi_process": multi_launches, "sharded_scores": sharded_launches,
     }
     entries = kernel_entries(i16, f32, host_rows, host_extra, probe_rows, by_path)
     print(json.dumps({"kernels": entries}))

@@ -322,7 +322,9 @@ def _normalize(reads_u8, concat, read_id, reversed_, win_start, lane, n, m):
     )
 
 
-def banded_scores_gathered(reads_u8, concat, read_id, reversed_, win_start, lane, n, m, params, band: int):
+def banded_scores_gathered(
+    reads_u8, concat, read_id, reversed_, win_start, lane, n, m, params, band: int, mesh=None,
+):
     """Fused candidate scoring against a reference held on the device.
 
     reads_u8 [R, LQ] uint8 (0-padded rows, forward orientation only);
@@ -332,7 +334,17 @@ def banded_scores_gathered(reads_u8, concat, read_id, reversed_, win_start, lane
     fits) and the ungapped penalty of the diagonal at `lane`.
 
     The int16/f32 choice is `_quantize_params(params, LQ, band)`.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    tensor takes the plain version; a CUDA tensor launches the kernel.
+
+    With a `mesh` (`parallel.mesh.make_mesh`) the candidate rows shard over
+    it in contiguous slices (numpy or tensor vectors, moved to each entry's
+    device), each scored on its entry's device, and the [2, B] result lies
+    on the mesh's first device in row order.  `reads_u8` and `concat` are
+    then lists of one copy per mesh entry (`parallel.mesh.replicate`)."""
+    if mesh is not None:
+        return _gathered_on_mesh(
+            mesh, reads_u8, concat, (read_id, reversed_, win_start, lane, n, m), params, band
+        )
     device = reads_u8.device
     args = _normalize(reads_u8, concat, read_id, reversed_, win_start, lane, n, m)
     if device.type == "cpu":
@@ -344,6 +356,25 @@ def banded_scores_gathered(reads_u8, concat, read_id, reversed_, win_start, lane
     if quant is not None:
         return kernels.banded_i16(*args, quant[1], _inv(quant[0]), band)
     return kernels.banded_f32(*args, _params_tuple(params), band)
+
+
+def _gathered_on_mesh(mesh, reads_u8, concat, vectors, params, band: int):
+    """`banded_scores_gathered` with the candidate rows sharded over `mesh`:
+    the port's `shard_map` of `_gathered_core` (`pallas_dp._gathered_fn`)."""
+    from mapper_tpu_torch.parallel import mesh as mesh_lib
+
+    reads, refs = reads_u8, concat
+    if not all(isinstance(c, (list, tuple)) and len(c) == len(mesh) for c in (reads, refs)):
+        raise ValueError("banded_scores_gathered: one reads and reference copy per mesh entry")
+
+    def shard(device, reads_d, concat_d, *vecs):
+        return banded_scores_gathered(reads_d, concat_d, *vecs, params, band).to(mesh[0])
+
+    shards = mesh_lib.shard_batch(mesh, *vectors)
+    outs = mesh_lib.on_shards(
+        mesh, shard, [(reads[i], refs[i], *(s[i] for s in shards)) for i in range(len(mesh))]
+    )
+    return torch.cat(outs, dim=1)
 
 
 def _host_rows(q_codes, w_codes, n, m, band: int, chunk: int):

@@ -23,8 +23,10 @@ candidates.  A launch that needs more than 48 KB of shared memory opts in
 first, up to `_SMEM_LIMIT`, which each wrapper checks.
 
 Each wrapper checks its tensors, allocates its outputs with `torch.empty`,
-launches on the current CUDA stream, raises if the launch reported an error,
-and adds one to its entry of `LAUNCHES`.  An empty candidate batch returns the
+launches on the current CUDA stream of the tensors' device with that device
+current on the host thread (the launcher opts in to shared memory and launches
+on the current device), raises if the launch reported an error, and adds one to
+its entry of `LAUNCHES`.  An empty candidate batch returns the
 empty outputs without a launch, and is not counted.
 """
 
@@ -300,9 +302,10 @@ def banded_i16(
     if out.shape[1] == 0:
         return out
     lib = library()
-    err = lib.mapper_banded_i16(
-        *common, *(int(v) for v in ints), float(inv), out.data_ptr(), _ptr(diag_out), stream
-    )
+    with torch.cuda.device(reads.device):
+        err = lib.mapper_banded_i16(
+            *common, *(int(v) for v in ints), float(inv), out.data_ptr(), _ptr(diag_out), stream
+        )
     if err != 0:
         raise RuntimeError(f"banded_i16 launch failed: CUDA error {err}")
     _count("banded_i16")
@@ -322,9 +325,10 @@ def banded_f32(
     if out.shape[1] == 0:
         return out
     lib = library()
-    err = lib.mapper_banded_f32(
-        *common, *(float(v) for v in params6), out.data_ptr(), _ptr(diag_out), stream
-    )
+    with torch.cuda.device(reads.device):
+        err = lib.mapper_banded_f32(
+            *common, *(float(v) for v in params6), out.data_ptr(), _ptr(diag_out), stream
+        )
     if err != 0:
         raise RuntimeError(f"banded_f32 launch failed: CUDA error {err}")
     _count("banded_f32")
@@ -363,9 +367,10 @@ def banded_i16_packed(q, w, n, m, ints, inv: float):
     if b == 0:
         return scores, diag
     lib = library()
-    err = lib.mapper_banded_i16_packed(
-        *rows, *(int(v) for v in ints), float(inv), scores.data_ptr(), diag.data_ptr(), stream
-    )
+    with torch.cuda.device(q.device):
+        err = lib.mapper_banded_i16_packed(
+            *rows, *(int(v) for v in ints), float(inv), scores.data_ptr(), diag.data_ptr(), stream
+        )
     if err != 0:
         raise RuntimeError(f"banded_i16_packed launch failed: CUDA error {err}")
     _count("banded_i16_packed")
@@ -383,9 +388,10 @@ def banded_roll_f32(q, w, n, m, params6, band: int):
     if b == 0:
         return scores
     lib = library()
-    err = lib.mapper_banded_roll_f32(
-        *rows, band, *(float(v) for v in params6), scores.data_ptr(), stream
-    )
+    with torch.cuda.device(q.device):
+        err = lib.mapper_banded_roll_f32(
+            *rows, band, *(float(v) for v in params6), scores.data_ptr(), stream
+        )
     if err != 0:
         raise RuntimeError(f"banded_roll_f32 launch failed: CUDA error {err}")
     _count("banded_roll_f32")
@@ -405,9 +411,10 @@ def banded_chunk_f32(q, w, n, m, params6, band: int, chunk: int):
     if b == 0:
         return scores
     lib = library()
-    err = lib.mapper_banded_chunk_f32(
-        *rows, band, chunk, *(float(v) for v in params6), scores.data_ptr(), stream
-    )
+    with torch.cuda.device(q.device):
+        err = lib.mapper_banded_chunk_f32(
+            *rows, band, chunk, *(float(v) for v in params6), scores.data_ptr(), stream
+        )
     if err != 0:
         raise RuntimeError(f"banded_chunk_f32 launch failed: CUDA error {err}")
     _count("banded_chunk_f32")
@@ -436,10 +443,11 @@ def probe_i16(stage: str, body: int, x, reduces: bool):
         return out
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.mapper_probe_i16(
-        PROBE_STAGES.index(stage), int(body), x.data_ptr(), out.data_ptr(), rows, lanes,
-        out_cols, stream,
-    )
+    with torch.cuda.device(device):
+        err = lib.mapper_probe_i16(
+            PROBE_STAGES.index(stage), int(body), x.data_ptr(), out.data_ptr(), rows, lanes,
+            out_cols, stream,
+        )
     if err != 0:
         raise RuntimeError(f"probe_i16_{stage} body {body} launch failed: CUDA error {err}")
     _count(f"probe_i16_{stage}")

@@ -10,6 +10,11 @@ accumulators once and adds them into the MatchDatabase pileups; the rarer
 shapes (indels, mate overlap, fractional multi-choice weights, fallback
 reads) keep the host accumulation.
 
+With a `mesh` (parallel/mesh.py) each chunk's rows split over the mesh in
+contiguous slices, and each mesh entry scatters its slice into a [2, 6 * N]
+state of its own on its device; the states are summed once, on the mesh's
+first device, at the merge (`reduce_pileup`, the JAX package's `psum`).
+
 Exactness: only weights 1.0 and 0.5 reach this path (the engine passes 1.0),
 so every accumulated value is a sum of 0.5 steps, exact in float32 below
 2^23 whatever order the atomic adds of `index_add_` take on the card.  The
@@ -18,10 +23,13 @@ outputs are therefore byte-identical to the host path's.
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import numpy as np
 import torch
+
+from mapper_tpu_torch.parallel.mesh import make_mesh, on_shards, reduce_pileup, replicate, shard_batch
 
 ROWS = 6  # A C G T ambiguous deletion (pileup.py row order)
 # compact positions above this keep the host path, so that both packages take
@@ -36,7 +44,7 @@ class DevicePileup:
     reverse-complement segments are never hit; leaving them out halves the
     state and the merge-time copy)."""
 
-    def __init__(self, seq_db, query_end_fraction: float, device):
+    def __init__(self, seq_db, query_end_fraction: float, device=None, mesh=None):
         self.seq_db = seq_db
         self.query_end_fraction = float(query_end_fraction)
         # compact = global + _delta[seq_index]; reverse-complement rows keep
@@ -59,8 +67,16 @@ class DevicePileup:
                 f"reference too large for device pileup: {self.n_concat} forward "
                 f"positions, above {MAX_POSITIONS}"
             )
-        self._device = torch.device(device)
-        self._state = None  # [2, 6 * N] float32, created at the first rows
+        # the devices that scatter: the mesh's entries, else the one device
+        if mesh is None:
+            self._devices = make_mesh(["cuda" if device is None else device])
+        else:
+            self._devices = make_mesh(mesh)
+            if device is not None and make_mesh([device])[0] != self._devices[0]:
+                raise ValueError(f"DevicePileup: device {device} is not the mesh's first entry")
+        # one [2, 6 * N] float32 state per entry of `_devices`, created at
+        # the first rows
+        self._states = None
         self.num_rows_accumulated = 0
         # the CLI processes chunks on a thread pool: one update at a time
         self._lock = threading.Lock()
@@ -88,16 +104,29 @@ class DevicePileup:
             "n": n,
             "weight": np.asarray(weight, dtype=np.float32),
         }
+        mesh = self._devices
         with self._lock:
-            dev = {k: torch.from_numpy(v).to(self._device) for k, v in host.items()}
-            if self._state is None:
-                self._state = torch.zeros(
-                    (2, ROWS * self.n_concat), dtype=torch.float32, device=self._device
-                )
-            flat, mid, end = self._scatter_rows(lq, **dev)
-            self._state[0].index_add_(0, flat, mid)
-            self._state[1].index_add_(0, flat, end)
+            if self._states is None:
+                self._states = [
+                    torch.zeros((2, ROWS * self.n_concat), dtype=torch.float32, device=d)
+                    for d in mesh
+                ]
+            shared = replicate(mesh, host.pop("codes"), host.pop("read_starts"))
+            rows = shard_batch(mesh, *host.values())
+            shard_args = [
+                (state, codes, starts, *(r[i] for r in rows))
+                for i, (state, codes, starts) in enumerate(zip(self._states, *shared))
+            ]
+            on_shards(mesh, functools.partial(self._add_shard, lq), shard_args)
             self.num_rows_accumulated += b
+
+    def _add_shard(self, lq, device, state, codes, read_starts, *rows) -> None:
+        """One mesh entry's rows added into its own state."""
+        if len(rows[0]) == 0:
+            return
+        flat, mid, end = self._scatter_rows(lq, codes, read_starts, *rows)
+        state[0].index_add_(0, flat, mid)
+        state[1].index_add_(0, flat, end)
 
     def _scatter_rows(self, lq, codes, read_starts, read_id, reversed_, gstart, n, weight):
         """Flat state indices [B * LQ] and the middle and end weights added
@@ -128,10 +157,11 @@ class DevicePileup:
     def merge_into(self, match_database) -> None:
         """Copy the accumulators to the host once, as float64, and add them
         into the MatchDatabase's per-contig pileups."""
-        if self._state is None or self._merged:
+        if self._states is None or self._merged:
             return
         self._merged = True
-        state = self._state.cpu().numpy().astype(np.float64).reshape(2, ROWS, self.n_concat)
+        state = reduce_pileup(self._devices, self._states).cpu().numpy()
+        state = state.astype(np.float64).reshape(2, ROWS, self.n_concat)
         for i, lo, hi in self._fwd_compact_starts:
             if not state[:, :, lo:hi].any():
                 continue

@@ -27,6 +27,12 @@ the host instead of the kernel.  `device_candidates=True` (or
 `MAPPER_TPU_DEVICE_CANDIDATES=1`) replaces steps 1-3 of single-end chunks
 with one device program (batch/device_candidates.py) that also scores every
 kept candidate row.
+
+With a `mesh` (parallel/mesh.py) step 3 shards the candidate rows over the
+mesh's devices, each holding its own copy of the reference and the chunk's
+read matrix, and never scores on the host; the fused device-candidates
+program runs whole on the mesh's first device, as the JAX engine runs it on
+the replicated reference without sharding it.
 """
 
 from __future__ import annotations
@@ -55,8 +61,13 @@ from mapper_tpu_torch.batch.candidates import (
 )
 from mapper_tpu_torch.sequence import Sequence
 from mapper_tpu_torch.align.banded import banded_scores_gathered
+from mapper_tpu_torch.parallel.mesh import make_mesh, replicate
 
 EPS = 1e-3
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def upload_reference(concat_np: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -72,7 +83,7 @@ class BatchAligner:
         self,
         reference_index,
         parameters,
-        device: torch.device,
+        device: torch.device | None = None,
         band: int | None = None,
         # reads longer than this take the sequential exact path; 2048 covers
         # --split-queries-past-size chunks (the reference warns past 1600bp,
@@ -85,9 +96,14 @@ class BatchAligner:
         mesh=None,
         device_candidates: bool | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("multi-device scoring is not ported yet")
+        # scoring shards over the mesh's devices (parallel/mesh.py); the
+        # engine's own device is the mesh's first, by default
+        self.mesh = None if mesh is None else make_mesh(mesh)
+        if device is None:
+            device = self.mesh[0] if self.mesh is not None else "cuda"
         self.device = torch.device(device)
+        if self.mesh is not None and make_mesh([self.device])[0] != self.mesh[0]:
+            raise ValueError(f"BatchAligner: device {self.device} is not the mesh's first entry")
         # the fused device-candidates path (batch/device_candidates.py) is
         # opt-in: device_candidates=True or MAPPER_TPU_DEVICE_CANDIDATES=1
         self.device_candidates = device_candidates
@@ -125,7 +141,7 @@ class BatchAligner:
         # process_batch runs on a pool of threads sharing this engine
         self._stats_lock = threading.Lock()
         self._upload_lock = threading.Lock()
-        self._concat_dev = None
+        self._concat_devs: dict[torch.device, torch.Tensor] = {}
         self._ref_cache: dict[int, tuple] = {}
         # optional collections.Counter: the gapped-finalization gates count
         # their reject reasons here when set (perf debugging)
@@ -1400,9 +1416,11 @@ class BatchAligner:
         # MAPPER_TPU_HOST_SCORING=1 scores short reads with the OpenMP native
         # exact DP on the host (f64, full local_align semantics) instead of
         # the kernel; long reads keep the kernel, where the banded O(n*band)
-        # DP beats the host's full O(n*w) one
+        # DP beats the host's full O(n*w) one.  A mesh always scores on its
+        # devices, as in the JAX engine
         if (
-            os.environ.get("MAPPER_TPU_HOST_SCORING") == "1"
+            self.mesh is None
+            and os.environ.get("MAPPER_TPU_HOST_SCORING") == "1"
             and int(batch.lengths.max(initial=0)) <= HOST_SCORING_MAX_LEN
         ):
             sctx = self._dispatch_scores_native(
@@ -1419,30 +1437,34 @@ class BatchAligner:
         q_mat = np.zeros((num_reads, lq), dtype=np.uint8)
         for r, seq in enumerate(seqs):
             q_mat[r, : len(seq)] = seq.codes
-        dev = self.device
-
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        out = banded_scores_gathered(
-            up(q_mat),
-            self._concat_device(),
-            up(table.read_id.astype(np.int64)),
-            up(table.reversed_.astype(bool)),
-            up(win_start_global.astype(np.int64)),
-            up(lane),
-            up(n_per_cand.astype(np.int32)),
-            up(w_len.astype(np.int32)),
-            p,
-            band,
+        vectors = (
+            table.read_id.astype(np.int64),
+            table.reversed_.astype(bool),
+            win_start_global.astype(np.int64),
+            lane,
+            n_per_cand.astype(np.int32),
+            w_len.astype(np.int32),
         )
+        if self.mesh is None:
+            dev = self.device
+            out = banded_scores_gathered(
+                _upload(q_mat, dev), self._concat_device(), *(_upload(v, dev) for v in vectors),
+                p, band,
+            )
+        else:
+            # each mesh device gets the chunk's read matrix once and its own
+            # copy of the reference; the candidate vectors shard over the mesh
+            (reads,) = replicate(self.mesh, q_mat)
+            refs = [self._concat_device(d) for d in self.mesh]
+            out = banded_scores_gathered(reads, refs, *vectors, p, band, mesh=self.mesh)
         if out.is_cuda:
             # copy back into pinned memory without blocking the host; the
-            # finish stage waits on the event
+            # finish stage waits on the event (with a mesh, the current
+            # stream has already joined every shard's)
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(out.device))
         else:
             host, done = out, None
         return {
@@ -1613,13 +1635,15 @@ class BatchAligner:
             return self.device_candidates
         return os.environ.get("MAPPER_TPU_DEVICE_CANDIDATES") == "1"
 
-    def _concat_device(self) -> torch.Tensor:
-        """The concatenated reference codes on `self.device`, uploaded once
-        (under a lock: pool threads share the engine)."""
+    def _concat_device(self, device: torch.device | None = None) -> torch.Tensor:
+        """The concatenated reference codes on `device` (default
+        `self.device`), uploaded once per device (under a lock: pool threads
+        share the engine)."""
+        device = self.device if device is None else device
         with self._upload_lock:
-            if self._concat_dev is None:
-                self._concat_dev = upload_reference(self.concat, self.device)
-            return self._concat_dev
+            if device not in self._concat_devs:
+                self._concat_devs[device] = upload_reference(self.concat, device)
+            return self._concat_devs[device]
 
     def _finish_scores(self, sctx):
         """Materialize the scores of a _dispatch_scores context: (ungapped,

@@ -12,11 +12,21 @@ asking for CUDA without a card exits with an error).  With
 `--infer-ancestors`), the clean ungapped alignments' pileup is accumulated
 on that device (`batch/device_pileup.py`).  Argument helpers, writers and
 detectors are the port's own copies of the JAX package's host code.
+
+`--devices N` shards candidate scoring (and the device pileup) over the
+first N devices of that device's type (`parallel/mesh.py`: the cards, or
+`MAPPER_TPU_TORCH_CPU_DEVICES` entries of the CPU); `auto` takes them all
+when there are several.  `--num-processes N --process-id K` aligns the K-th
+round-robin share of the queries; process 0 waits for the others' shards
+(`.done` files, and a gloo barrier with `--coordinator host:port`) and
+merges them into outputs byte-identical to a one-process run
+(`parallel/multihost.py`).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import sys
 import threading
 import time
@@ -124,6 +134,10 @@ def main(argv: list[str] | None = None) -> int:
     max_num_matches = None
     max_penalty_span = -1.0
     num_threads = 1
+    num_devices = "auto"  # "auto" = every visible device when several; N = the first N
+    num_processes = 1
+    process_id = 0
+    coordinator = None
     query_end_fraction = 0.1
     split_queries_past_size = -1
     has_paired_without_spacing = False
@@ -251,19 +265,27 @@ def main(argv: list[str] | None = None) -> int:
         elif arg == "--num-threads":
             num_threads = int(args[i + 1])
             i += 2
-        elif arg in ("--num-processes", "--process-id", "--coordinator"):
-            # multi-process runs come with the torch.distributed port
-            single = {"--num-processes": "1", "--process-id": "0"}.get(arg)
-            if args[i + 1] != single:
-                usage_error(
-                    f"{arg} {args[i + 1]}: multi-process runs are not supported "
-                    "by mapper_tpu_torch yet"
-                )
+        elif arg == "--num-processes":
+            # multi-process data parallelism: each process aligns a
+            # round-robin share of the query stream and process 0 merges
+            # outputs in exact 1-process order (parallel/multihost.py)
+            num_processes = int(args[i + 1])
+            if num_processes < 1:
+                usage_error("--num-processes must be >= 1")
+            i += 2
+        elif arg == "--process-id":
+            process_id = int(args[i + 1])
+            i += 2
+        elif arg == "--coordinator":
+            coordinator = args[i + 1]
             i += 2
         elif arg == "--devices":
-            # one device per run until multi-GPU scoring is ported
-            if args[i + 1] not in ("auto", "1"):
-                usage_error("--devices: only 'auto' and 1 are supported by mapper_tpu_torch yet")
+            # shard candidate scoring over N devices (the reference's scale
+            # knob is N worker threads, Mapper.java:154,640)
+            if args[i + 1] != "auto":
+                num_devices = int(args[i + 1])
+                if num_devices < 1:
+                    usage_error("--devices must be >= 1 or 'auto'")
             i += 2
         elif arg == "--engine":
             engine = args[i + 1]
@@ -338,8 +360,15 @@ def main(argv: list[str] | None = None) -> int:
         max_penalty_span=None if max_penalty_span < 0 else max_penalty_span,
     )
 
+    if not (0 <= process_id < num_processes):
+        usage_error("--process-id must be in [0, --num-processes)")
+
     return run(
         engine=engine,
+        num_devices=num_devices,
+        num_processes=num_processes,
+        process_id=process_id,
+        coordinator=coordinator,
         alignment_verbosity=alignment_verbosity,
         reference_verbosity=reference_verbosity,
         auto_verbose=auto_verbose,
@@ -367,6 +396,20 @@ def main(argv: list[str] | None = None) -> int:
     )
 
 
+def _save_refs_counts(refs_counter: ReferenceAlignmentCounter, path: str) -> None:
+    """One process's reads-per-reference-combination counts, for process 0."""
+    with open(path, "wb") as f:
+        pickle.dump(refs_counter.counts, f)
+
+
+def _merge_refs_counts(refs_counter: ReferenceAlignmentCounter, path: str) -> None:
+    """Add another process's counts (a file this run's processes wrote):
+    the counts are sums, so the merged file equals a one-process run's."""
+    with open(path, "rb") as f:
+        for key, count in pickle.load(f).items():
+            refs_counter.counts[key] = refs_counter.counts.get(key, 0) + count
+
+
 def run(
     reference_paths,
     query_providers,
@@ -390,6 +433,10 @@ def run(
     enable_gapmers,
     verify_consistent_database,
     start_time,
+    num_devices="auto",
+    num_processes=1,
+    process_id=0,
+    coordinator=None,
     alignment_verbosity=0,
     reference_verbosity=0,
     auto_verbose=False,
@@ -401,8 +448,11 @@ def run(
     reference_logger = Logger(stderr_writer, 0, reference_verbosity)
 
     device = None
+    mesh = None
     if engine == "batch":
         import torch
+
+        from mapper_tpu_torch.parallel.mesh import make_mesh, visible_devices
 
         device = torch.device(os.environ.get("MAPPER_TPU_TORCH_DEVICE", "cuda"))
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -410,6 +460,30 @@ def run(
                 f"MAPPER_TPU_TORCH_DEVICE={device}: no CUDA device is available "
                 "(set MAPPER_TPU_TORCH_DEVICE=cpu to run the plain scorer on the host)"
             )
+        available = visible_devices(device.type)
+        if num_devices == "auto":
+            use_devices = available if len(available) > 1 else []
+        else:
+            if num_devices > len(available):
+                usage_error(
+                    f"--devices {num_devices} requested but only "
+                    f"{len(available)} visible ({device.type})"
+                )
+            use_devices = available[:num_devices] if num_devices > 1 else []
+        if use_devices:
+            mesh = make_mesh(use_devices)
+            device = mesh[0]
+
+    distributed = num_processes > 1
+    if distributed:
+        from mapper_tpu_torch.parallel import multihost
+
+        log(f"Process {process_id}/{num_processes} (round-robin query sharding)")
+        if coordinator:
+            multihost.initialize(coordinator, num_processes, process_id)
+
+    def shard_path(base: str, k: int) -> str:
+        return f"{base}.shard{k}"
 
     log("Loading reference")
     reference_provider = fastx.load_from(reference_paths, keep_quality=False)
@@ -520,25 +594,50 @@ def run(
     listeners.append(indel_summarizer)
     sam_writer = None
     sam_stream = None
+    sam_shard = None
     if out_sam_path is not None:
         contains_paired = queries.get_contains_paired_end_reads()
-        sam_stream = sys.stdout if out_sam_path == "-" else open(out_sam_path, "wt")
-        sam_writer = SamWriter(sequence_database, sam_stream, contains_paired)
-        listeners.append(sam_writer)
+        if distributed:
+            sam_shard = multihost.ShardedResultWriter(
+                lambda stream: SamWriter(sequence_database, stream, contains_paired)
+            )
+            listeners.append(sam_shard)
+        else:
+            sam_stream = sys.stdout if out_sam_path == "-" else open(out_sam_path, "wt")
+            sam_writer = SamWriter(sequence_database, sam_stream, contains_paired)
+            listeners.append(sam_writer)
     unaligned_writer = None
+    unaligned_shard = None
     if out_unaligned_path is not None:
-        unaligned_writer = UnalignedQueryWriter(
-            out_unaligned_path, queries.all_reads_contain_quality_information()
-        )
-        listeners.append(unaligned_writer)
+        if distributed:
+            # the JAX CLI leaves one unaligned file per process; the port
+            # merges them in global query order like the SAM shards
+            unaligned_shard = multihost.ShardedResultWriter(
+                lambda stream: UnalignedQueryWriter(
+                    out_unaligned_path, queries.all_reads_contain_quality_information(), stream
+                )
+            )
+            listeners.append(unaligned_shard)
+        else:
+            unaligned_writer = UnalignedQueryWriter(
+                out_unaligned_path, queries.all_reads_contain_quality_information()
+            )
+            listeners.append(unaligned_writer)
     listeners.append(match_counter)
+
+    if distributed:
+        queries = multihost.RoundRobinQueries(queries, process_id, num_processes)
 
     cache = AlignmentCache()
     worker = AlignerWorker(reference_index, parameters, listeners, cache)
     if engine == "batch":
         from mapper_tpu_torch.batch.engine import BatchAligner
 
-        engine_obj = BatchAligner(reference_index, parameters, device, listeners=listeners)
+        if mesh is not None:
+            log(f"Sharding candidate scoring over {len(mesh)} devices")
+        engine_obj = BatchAligner(
+            reference_index, parameters, device, listeners=listeners, mesh=mesh
+        )
         engine_obj.fallback_worker = AlignerWorker(reference_index, parameters)
         # the engine probes/stores the cache at chunk intake (covering the
         # batch fast path, not just worker fallbacks); the inner worker runs
@@ -555,7 +654,9 @@ def run(
             from mapper_tpu_torch.batch.device_pileup import DevicePileup
 
             try:
-                engine_obj.device_pileup = DevicePileup(sequence_database, query_end_fraction, device)
+                engine_obj.device_pileup = DevicePileup(
+                    sequence_database, query_end_fraction, device, mesh=mesh
+                )
             except ValueError as e:
                 log(f"Device pileup not taken, the pileup stays on the host: {e}")
     else:
@@ -636,7 +737,8 @@ def run(
     align_start = time.time()
     for query_builder in queries:
         num_loaded += 1
-        query_builder.set_id(num_loaded)
+        if not distributed:  # RoundRobinQueries already set the global id
+            query_builder.set_id(num_loaded)
         batch.append(query_builder.build())
         batch_bases += batch[-1].get_length()
         if batch_bases >= max_bases_per_batch:
@@ -668,6 +770,67 @@ def run(
     if device_pileup is not None:
         device_pileup.merge_into(match_database)
         log(f"Device pileup: {device_pileup.num_rows_accumulated} rows counted on the device")
+
+    needs_pileup = out_vcf_path is not None or out_mutations_path is not None
+    if distributed:
+        # cross-process merge (parallel/multihost.py): every process saves its
+        # shards and a done marker; process 0 waits and merges in global order
+        if sam_shard is not None:
+            sam_shard.save_shard(shard_path(out_sam_path, process_id) + ".pkl")
+        if unaligned_shard is not None:
+            unaligned_shard.save_shard(shard_path(out_unaligned_path, process_id) + ".pkl")
+        if process_id != 0:
+            if needs_pileup:
+                base = out_vcf_path or out_mutations_path
+                multihost.save_pileup_shard(
+                    match_database, shard_path(base, process_id) + ".pkl"
+                )
+            if out_refs_map_count_path is not None:
+                _save_refs_counts(
+                    refs_counter, shard_path(out_refs_map_count_path, process_id) + ".pkl"
+                )
+        marker_base = (
+            out_sam_path or out_vcf_path or out_mutations_path or out_unaligned_path
+            or out_refs_map_count_path
+        )
+        if marker_base is not None:
+            with open(shard_path(marker_base, process_id) + ".done", "w") as f:
+                f.write("done\n")
+        if coordinator:
+            multihost.barrier("mapper_tpu_outputs")
+        if process_id != 0:
+            log(f"Process {process_id} done (shards saved; process 0 merges)")
+            return 0
+        # process 0: wait for every shard, then merge
+        markers = []
+        if marker_base is not None:
+            markers = [shard_path(marker_base, k) + ".done" for k in range(num_processes)]
+            multihost.wait_for_files(markers[1:])
+        merged = []
+        if sam_shard is not None:
+            sam_stream = sys.stdout if out_sam_path == "-" else open(out_sam_path, "wt")
+            shards = [shard_path(out_sam_path, k) + ".pkl" for k in range(num_processes)]
+            multihost.merge_sam_shards(shards, sam_stream)
+            merged += shards
+        if unaligned_shard is not None:
+            shards = [shard_path(out_unaligned_path, k) + ".pkl" for k in range(num_processes)]
+            with open(out_unaligned_path, "wt", encoding="ascii") as stream:
+                multihost.merge_sam_shards(shards, stream)
+            merged += shards
+        if needs_pileup:
+            base = out_vcf_path or out_mutations_path
+            shards = [shard_path(base, k) + ".pkl" for k in range(1, num_processes)]
+            multihost.merge_pileup_shards(match_database, shards)
+            merged += shards
+        if out_refs_map_count_path is not None:
+            shards = [shard_path(out_refs_map_count_path, k) + ".pkl" for k in range(1, num_processes)]
+            for path in shards:
+                _merge_refs_counts(refs_counter, path)
+            merged += shards
+        # the shards and markers belong to this run: a later run into the
+        # same paths must wait for its own, not merge these
+        for path in merged + markers:
+            os.remove(path)
 
     if out_refs_map_count_path is not None:
         refs_counter.sum_alignments(out_refs_map_count_path)

@@ -52,15 +52,18 @@ class UnalignedQueryWriter:
     """Writes reads with no alignments (reference: UnalignedQuery_Writer;
     fasta/fastq chosen by extension, Mapper.java:727-731, README.md:95)."""
 
-    def __init__(self, path: str, all_reads_have_quality: bool):
+    def __init__(self, path: str, all_reads_have_quality: bool, stream=None):
         from mapper_tpu_torch.io import fastx
 
         self.path = path
+        # the records go to `stream` when one is given (one process's share
+        # of a multi-process run), in the format `path` names
+        target = path if stream is None else stream
         base = path[:-3] if path.endswith(".gz") else path
         if base.endswith((".fastq", ".fq")):
-            self.writer = fastx.FastqWriter(path)
+            self.writer = fastx.FastqWriter(target)
         elif base.endswith((".fasta", ".fa", ".fna")):
-            self.writer = fastx.FastaWriter(path)
+            self.writer = fastx.FastaWriter(target)
         else:
             raise ValueError(
                 f"--out-unaligned path {path!r} must have a .fasta or .fastq extension"

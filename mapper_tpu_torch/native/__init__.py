@@ -62,6 +62,10 @@ _counting_load_failed = False
 
 
 def _build(source: str, library: str, extra=()) -> bool:
+    # a temporary file of this process's own: processes that build the same
+    # library at once (test workers on a cold cache) must not write, unlink
+    # or rename each other's output
+    tmp = f"{library}.{os.getpid()}.tmp"
     try:
         subprocess.run(
             [
@@ -73,12 +77,12 @@ def _build(source: str, library: str, extra=()) -> bool:
                 *extra,
                 source,
                 "-o",
-                library + ".tmp",
+                tmp,
             ],
             check=True,
             capture_output=True,
         )
-        os.replace(library + ".tmp", library)
+        os.replace(tmp, library)
         return True
     except Exception:
         return False

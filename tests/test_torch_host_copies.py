@@ -39,9 +39,52 @@ MODULES = (
     "index/database.py", "index/dircache.py", "index/duplication.py", "index/ancestry.py",
     "io/__init__.py", "io/fastx.py", "io/sam.py", "io/vcf.py", "io/mutations.py",
     "io/refcounts.py",
-    "native/__init__.py",
+    "native/__init__.py", "parallel/multihost.py",
 )
 NATIVE_SOURCES = ("native/dp.cpp", "native/candidates.cpp", "native/counting.cpp", "native/textrows.cpp")
+
+JAX_INITIALIZE_AND_BARRIER = '''def initialize(coordinator: str, num_processes: int, process_id: int) -> None:
+    """jax.distributed.initialize wrapper (idempotent)."""
+    import jax
+
+    try:
+        jax.distributed.initialize(
+            coordinator, num_processes=num_processes, process_id=process_id
+        )
+    except RuntimeError as e:  # already initialized
+        if "already" not in str(e).lower():
+            raise
+
+
+def barrier(name: str) -> None:
+    from jax.experimental import multihost_utils
+
+    multihost_utils.sync_global_devices(name)
+'''
+PORT_INITIALIZE_AND_BARRIER = '''def initialize(coordinator: str, num_processes: int, process_id: int) -> None:
+    """torch.distributed.init_process_group over gloo at `coordinator`
+    (host:port), idempotent.  gloo on the card too: no tensor crosses
+    processes (outputs merge through shard files), and NCCL refuses two
+    ranks on one GPU."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    dist.init_process_group(
+        "gloo",
+        init_method=f"tcp://{coordinator}",
+        world_size=num_processes,
+        rank=process_id,
+    )
+
+
+def barrier(name: str) -> None:
+    """Every process of the group reaches this point (`name` labels the
+    barrier as in the JAX package; torch.distributed's barrier is unnamed)."""
+    import torch.distributed as dist
+
+    dist.barrier()
+'''
 
 # module -> (text of the renamed original, text of the port's copy)
 INTENDED = {
@@ -80,6 +123,81 @@ INTENDED = {
             os.path.expanduser("~"), ".cache"
         )
         base = os.path.join(xdg, "mapper_tpu_torch", "native")""",
+    ), (
+        # a temporary build output per process: concurrent builds of one
+        # library on a cold cache (the test workers') lost it for a worker
+        """def _build(source: str, library: str, extra=()) -> bool:
+    try:""",
+        """def _build(source: str, library: str, extra=()) -> bool:
+    # a temporary file of this process's own: processes that build the same
+    # library at once (test workers on a cold cache) must not write, unlink
+    # or rename each other's output
+    tmp = f"{library}.{os.getpid()}.tmp"
+    try:""",
+    ), (
+        """                "-o",
+                library + ".tmp",""",
+        """                "-o",
+                tmp,""",
+    ), (
+        """        os.replace(library + ".tmp", library)""",
+        """        os.replace(tmp, library)""",
+    )],
+    # the unaligned writer also writes to a stream: a multi-process run's
+    # shard, which process 0 merges in global query order
+    "io/refcounts.py": [(
+        """    def __init__(self, path: str, all_reads_have_quality: bool):
+        from mapper_tpu_torch.io import fastx
+
+        self.path = path
+        base = path[:-3] if path.endswith(".gz") else path
+        if base.endswith((".fastq", ".fq")):
+            self.writer = fastx.FastqWriter(path)
+        elif base.endswith((".fasta", ".fa", ".fna")):
+            self.writer = fastx.FastaWriter(path)
+""",
+        """    def __init__(self, path: str, all_reads_have_quality: bool, stream=None):
+        from mapper_tpu_torch.io import fastx
+
+        self.path = path
+        # the records go to `stream` when one is given (one process's share
+        # of a multi-process run), in the format `path` names
+        target = path if stream is None else stream
+        base = path[:-3] if path.endswith(".gz") else path
+        if base.endswith((".fastq", ".fq")):
+            self.writer = fastx.FastqWriter(target)
+        elif base.endswith((".fasta", ".fa", ".fna")):
+            self.writer = fastx.FastaWriter(target)
+""",
+    )],
+    # torch.distributed (gloo) links the processes in place of
+    # jax.distributed; the rest of the module is the host copy
+    "parallel/multihost.py": [(
+        """exact 1-process order.  `jax.distributed.initialize` links the processes
+(gloo on CPU, ICI/DCN on TPU pods) for barriers; result merging is:""",
+        """exact 1-process order.  `torch.distributed` links the processes over gloo
+for barriers; result merging is:""",
+    ), (
+        JAX_INITIALIZE_AND_BARRIER,
+        PORT_INITIALIZE_AND_BARRIER,
+    ), (
+        # the merged insertion events in the 1-process run's order (the
+        # JAX package appends the other processes' new events at the end,
+        # and its VCF then lists a position's insertions in another order)
+        """                        if len(mine) > 3:
+                            mine[3] = their_gid
+""",
+        """                        if len(mine) > 3:
+                            mine[3] = their_gid
+    # a 1-process run meets the insertion events in global query order, and
+    # the VCF and mutations writers list a position's insertions in the
+    # dict's order: order each contig's events by their first contributor
+    # (a stable sort keeps one read's events in the order it added them)
+    for _, pileup in by_name.values():
+        pileup.insertions = dict(
+            sorted(pileup.insertions.items(), key=lambda item: item[1][3] if len(item[1]) > 3 else -1)
+        )
+""",
     )],
 }
 

@@ -24,6 +24,7 @@ sys.modules["mapper_tpu"] = None
 import numpy as np, torch
 torch.set_num_threads(1)  # the suite runs in several processes at once
 import mapper_tpu_torch, mapper_tpu_torch.cli, mapper_tpu_torch.align.kernels
+import mapper_tpu_torch.parallel.multihost, mapper_tpu_torch.parallel.sharded_index
 from mapper_tpu_torch import Api, AlignmentParameters
 from mapper_tpu_torch.batch.engine import BatchAligner
 from benchmarks.simlib import random_reference
@@ -44,6 +45,11 @@ fused = BatchAligner(index, AlignmentParameters.defaults(), torch.device("cpu"),
 fused_results = fused.process_batch([Query(Sequence.from_text(n, t)) for n, t in reads])
 assert fused.stats_fused_chunks == 1
 assert [r is not None and any(r.get_alignments()) for r in fused_results] == [
+    r is not None and any(r.get_alignments()) for r in results]
+# a mesh of two CPU entries
+sharded = BatchAligner(index, AlignmentParameters.defaults(), mesh=[torch.device("cpu")] * 2)
+sharded_results = sharded.process_batch([Query(Sequence.from_text(n, t)) for n, t in reads])
+assert [r is not None and any(r.get_alignments()) for r in sharded_results] == [
     r is not None and any(r.get_alignments()) for r in results]
 assert sys.modules["jax"] is None and sys.modules["mapper_tpu"] is None
 assert not [m for m in sys.modules if m.startswith(("jax.", "jaxlib", "mapper_tpu."))]

@@ -6,6 +6,8 @@ runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -377,3 +379,123 @@ def test_device_pileup_on_the_card_equals_the_cpu(cuda):
     for name, p in merged[0].items():
         np.testing.assert_array_equal(p.middle, merged[1][name].middle)
         np.testing.assert_array_equal(p.end, merged[1][name].end)
+
+
+def _recording_guard(entered):
+    """A `torch.cuda.device` that also records the device of every guard the
+    kernel wrappers enter (a subclass: torch checks its type)."""
+
+    class RecordingGuard(torch.cuda.device):
+        def __init__(self, device):
+            if sys._getframe(1).f_globals["__name__"] == kernels.__name__:
+                entered.append(torch.device(device))
+            super().__init__(device)
+
+    return RecordingGuard
+
+
+def _launch_every_scorer(device):
+    """One launch of each of the five scorers and of the probe kernel, with
+    its tensors on `device`; returns each output beside its plain version."""
+    params = AlignmentParameters.defaults()
+    quant = banded._quantize_params(params, 64, 64)
+    params6 = banded._params_tuple(params)
+    cands = scoring_candidates(np.random.default_rng(8), 40, 64, 64)
+    args = banded._normalize(*_tensors(cands, device))
+    cpu_args = [a.cpu() for a in args]
+    q, w = banded._gather_codes(*args[:5], args[6], 64)
+    q, w = q.to(torch.uint8).contiguous(), w.to(torch.uint8).contiguous()
+    n, m = args[6], args[7]
+    x = probes.probe_input(device)
+    return [
+        (kernels.banded_i16(*args, quant[1], banded._inv(quant[0]), 64),
+         banded._gathered_core(*cpu_args, params, 64)),
+        (kernels.banded_f32(*args, params6, 64), None),
+        (kernels.banded_i16_packed(q, w, n, m, quant[1], banded._inv(quant[0]))[0], None),
+        (kernels.banded_roll_f32(q, w, n, m, params6, 64), None),
+        (kernels.banded_chunk_f32(q, w, n, m, params6, 64, 32), None),
+        (probes.run("e", "sub", x), probes.plain("e", "sub", x.cpu())),
+    ]
+
+
+def test_every_launch_enters_its_tensors_device_guard(cuda, monkeypatch):
+    """Each wrapper makes its tensors' device current while it launches (the
+    launcher opts in to shared memory and launches on the current device).
+    One card can only show that the guard is entered with the tensors'
+    device; with a second card the launches on cuda:1, made while cuda:0 is
+    current, also equal their plain versions."""
+    entered = []
+    monkeypatch.setattr(torch.cuda, "device", _recording_guard(entered))
+    _launch_every_scorer(torch.device("cuda", 0))
+    assert entered == [torch.device("cuda", 0)] * 6
+    torch.cuda.synchronize()
+    if torch.cuda.device_count() > 1:
+        entered.clear()
+        other = torch.device("cuda", 1)
+        with torch.cuda.device(0):
+            outputs = _launch_every_scorer(other)
+        torch.cuda.synchronize(other)
+        assert entered == [other] * 6
+        for got, plain in outputs:
+            assert got.device == other
+            if plain is not None:
+                assert torch.equal(got.cpu(), plain)
+
+
+def test_two_shards_on_one_card_equal_one_device(cuda):
+    """A mesh of two entries of one card: the gathered scorer launches
+    banded_i16 once a shard, each on its own stream, and equals the
+    one-device call; `sharded_banded_scores` equals `banded_scores`."""
+    from mapper_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh([cuda, cuda])
+    assert mesh == (torch.device("cuda", 0),) * 2
+    params = AlignmentParameters.defaults()
+    cands = scoring_candidates(np.random.default_rng(12), 1001, 192, 64)
+    one = banded.banded_scores_gathered(*_tensors(cands, cuda), params, 64)
+    before = kernels.LAUNCHES["banded_i16"]
+    reads, concat = mesh_lib.replicate(mesh, cands["reads"], cands["concat"])
+    sharded = banded.banded_scores_gathered(reads, concat, *[cands[k] for k in _KEYS[2:]], params, 64, mesh=mesh)
+    assert kernels.LAUNCHES["banded_i16"] == before + 2
+    assert sharded.device == mesh[0] and torch.equal(sharded, one)
+    rng = np.random.default_rng(13)
+    q = torch.from_numpy(rng.integers(1, 5, size=(301, 150)).astype(np.uint8)).to(cuda)
+    w = torch.from_numpy(rng.integers(1, 5, size=(301, 150 + 64)).astype(np.uint8)).to(cuda)
+    n = torch.full((301,), 150, dtype=torch.int32, device=cuda)
+    m = torch.full((301,), 150 + 64, dtype=torch.int32, device=cuda)
+    got = mesh_lib.sharded_banded_scores(mesh, params, 64)(q, w, n, m)
+    assert torch.equal(got, banded.banded_scores(q, w, n, m, params, 64))
+
+
+def test_mesh_pileup_and_sharded_index_on_one_card(cuda):
+    """`DevicePileup(mesh=...)` and `ShardedIndex` over two entries of one
+    card equal their CPU counterparts."""
+    from mapper_tpu_torch import Api
+    from mapper_tpu_torch.batch.candidates import collect_batch_seeds
+    from mapper_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    mesh = (cuda, cuda)
+    rng = np.random.default_rng(14)
+    ref = random_reference(rng, 20_000)
+    contigs = sort_and_complement([Sequence.from_text("c1", ref)])
+    seq_db = SequenceDatabase(contigs)
+    reads = [Sequence.from_text(f"r{i}", ref[p : p + 150])
+             for i, p in enumerate(rng.integers(0, 20_000 - 150, size=500))]
+    offsets = [ref.find(r.get_text()) for r in reads]
+    args = (ReadBatch.from_sequences(reads), np.arange(500), rng.random(500) < 0.5,
+            np.array(offsets) + int(seq_db.starts[0]), np.full(500, 150), np.ones(500, np.float32))
+    merged = []
+    for pileup in (DevicePileup(seq_db, 0.1, mesh=mesh), DevicePileup(seq_db, 0.1, torch.device("cpu"))):
+        pileup.add_rows(*args)
+        db = MatchDatabase(0.1)
+        pileup.merge_into(db)
+        merged.append({s.name: p for s, p in db.group_by_position().items()})
+    for name, p in merged[0].items():
+        np.testing.assert_array_equal(p.middle, merged[1][name].middle)
+        np.testing.assert_array_equal(p.end, merged[1][name].end)
+    db = Api.new_database({"c1": ref}).hashblock_database
+    _, _, _, num_bp, key, _ = collect_batch_seeds(ReadBatch.from_sequences(reads[:64]), db)
+    got = ShardedIndex(db, mesh).lookup(num_bp, key)
+    want = ShardedIndex(db, (torch.device("cpu"),) * 2).lookup(num_bp, key)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g, w_)
