@@ -4,8 +4,9 @@
 
 Phases (each raises on failure; nothing is caught):
 1. print the card's name and power limit, build the CUDA kernels from
-   `mapper_tpu_torch/align/csrc/` (`banded_dp.cu` and `probe_i16.cu`, one
-   nvcc each, started together) and print the build time;
+   `mapper_tpu_torch/align/csrc/` (`banded_dp.cu`, `probe_i16.cu` and
+   `candidates.cu`, one nvcc each, started together) and print the build
+   time;
 2. compare each kernel with its plain PyTorch version on the card at the
    main paths' shapes and time both with CUDA events, every scorer exactly
    equal (torch.equal) to its plain version: banded_i16 at read width 192,
@@ -55,22 +56,35 @@ Phases (each raises on failure; nothing is caught):
    MAPPER_TPU_DEVICE_PILEUP=1, launch counts read around it.  banded_i16
    must launch, rows must have been counted on the card, and SAM, VCF and
    mutations must be byte-identical to the run without it;
-7. the device-candidates path (`batch/device_candidates.py`): on the first
-   4,096 reads of the 150 bp run, the candidates program on the card must
-   give the host candidate pass's rows on every read it does not flag for
-   fallback, and the fused program's whole int32 output on the card must
-   equal (torch.equal) the same program run on the CPU with the plain
-   scorer; both programs are timed with CUDA events beside the host pass's
-   wall time.  Then the 100,000-read and 2,000-read CLI runs again with
-   MAPPER_TPU_DEVICE_CANDIDATES=1, launch counts read around them: every
-   single-end chunk must take the fused path, banded_i16 must launch in the
-   first and banded_f32 in the second, and SAM, VCF and mutations must be
-   byte-identical to the host-scored twins;
+7. the device-candidates path (`batch/device_candidates.py`): KC1
+   (`candidates_kernel`) and KC2 (`fused_rows_kernel`, `candidates.cu`)
+   against their plain versions on the card (torch.equal, the same dtypes)
+   on four chunks: the first 4,096 reads of the 150 bp run, the 2,000 reads
+   of 1,000 bp, the mates of 2,048 pairs of the paired run, and one 5,000 bp
+   read (its row in KC1's scratch buffer), each timed with CUDA events and
+   on the host clock beside its plain version, with its bound (this run's
+   bytes and operations, `dc_bounds`); on the 150 bp chunk the candidates
+   program must give the host candidate pass's rows on every read it does
+   not flag, and the fused program's whole int32 output on the card must
+   equal the same program on the CPU and through the plain versions on the
+   card; the fused program's device operations a call (torch.profiler),
+   beside the plain versions', and its host time beside a busy Python
+   thread.  Then the 100,000-read CLI run on the fused path
+   (MAPPER_TPU_DEVICE_CANDIDATES=1) and kernel-scored in turns (fused,
+   kernel, kernel, fused, after phase 5's runs) and the 2,000-read run
+   fused, launch counts read around each fused run: every single-end chunk
+   must take the fused path, KC1 and KC2 launch once a fused chunk, K1
+   launches in the first and K2 in the second, and SAM, VCF and mutations
+   must be byte-identical to the host-scored twins;
 8. a paired run in config 3's shape (20,000 pairs of 2 x 150 bp from
    `benchmarks.simlib.simulate_paired`, --spacing 100 50) and a
    --split-queries-past-size 1500 run (500 reads of 3,000 bp, scored in
    1,500 bp pieces by banded_f32), launch counts read around each, each
-   byte-identical to its host-scored twin;
+   byte-identical to its host-scored twin, and the split run again on the
+   fused path (every chunk fused, KC1 and KC2 once a fused chunk),
+   byte-identical too.  Pairs take the paired path on the fused setting as
+   well, as in the JAX engine: phase 7's paired_mates chunk holds KC1 and
+   KC2 at their shape;
 9. the parallel slice, on a mesh of two shards of the one card
    (`parallel/mesh.py`; each shard on a CUDA stream of its own), launch
    counts read around each path: `sharded_banded_scores` on the host-window
@@ -121,6 +135,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 KERNEL_SOURCE = "mapper_tpu_torch/align/csrc/banded_dp.cu"
 PROBE_SOURCE = "mapper_tpu_torch/align/csrc/probe_i16.cu"
+DC_SOURCE = "mapper_tpu_torch/align/csrc/candidates.cu"
+# the XLA programs KC1 and KC2 replace (no pallas_call)
+DC_REPLACES = {
+    "candidates": "mapper_tpu/batch/device_candidates.py:406",
+    "fused_rows": "mapper_tpu/batch/device_candidates.py:748",
+}
 REPLACES = {
     "banded_i16": "mapper_tpu/align/pallas_dp.py:511",
     "banded_f32": "mapper_tpu/align/pallas_dp.py:437",
@@ -168,6 +188,27 @@ I16_OPS_PER_CELL = 10
 # banded_i16, so it takes the same bound, although it holds its state in
 # int32 registers.
 DP_RATES = {"i16": (I16_OPS_PER_CELL, I16_OPS_PER_S), "f32": (F32_OPS_PER_CELL, F32_OPS_PER_S)}
+# The device-candidates kernels' integer operations: the work the function
+# needs, counted from the plain program's operations on this run's data
+# (`dc_work`), not from the kernels' code, at the int32 rate.  KC1: a valid
+# base (its 2-bit code and flags; each of the two gapmer prefix sums' value,
+# its product with a power read from a table, and one add); a block entering
+# a level (the next valid neighbour, the merge test, two mergeHashes of nine
+# operations, the flag algebra, `extra`); a block after the merge (the
+# gapmer's extension and bounds, its two hashes from the prefix tables, each
+# with one power read from a table, the key and the size filter); a kept seed
+# (its bin's floor modulo and count test); a vote entry (its position, the
+# fold and the key), with two operations a step of the sequence search; a
+# compare of a sort of the entries (n log2 n of them, two operations for a
+# 64-bit key); an entry's vote (the run's neighbour compare and count, and
+# one pass for the top K).
+KC1_OPS = {"base": 8, "merge": 50, "gapmer": 40, "seed": 10, "entry": 20, "search_step": 2, "compare": 2,
+           "vote": 5}
+# KC2: a table entry (the keep rule, its block rank) and a kept row (the
+# decode's floor divisions, the geometry, six stores).
+KC2_OPS = {"entry": 20, "row": 40}
+SECTOR_BYTES = 32  # one index gather: a sector of device memory
+DC_TIMING_CALLS = 10
 
 
 def gpu_line() -> str:
@@ -836,32 +877,267 @@ def candidate_columns(table, skip) -> list:
                                           table.offset, table.votes)]
 
 
-def device_candidates_programs(root: Path, params, device) -> dict:
-    """The device-candidates programs on the first DC_READS reads of the
-    150 bp run, with the engine's band and half-windows: the candidates
-    program against the host pass (every read not flagged for fallback),
-    the fused program on the card against the same program on the CPU
-    (torch.equal over its whole int32 output); the programs' CUDA-event
-    times and host-clock times (issue and device, synchronized), the host
-    pass's wall time.  Returns the numbers."""
+def dc_batches(root: Path) -> dict:
+    """The device-candidates kernels' workloads, each one chunk of the CLI's
+    path: the first DC_READS reads of the 150 bp run, the 2,000 reads of
+    1,000 bp, the mates of the first DC_READS / 2 pairs of the paired run
+    as single reads, and one read of 5,000 bp from the reference (its row
+    takes KC1's scratch buffer)."""
     import numpy as np
+
+    from mapper_tpu_torch.batch.candidates import ReadBatch
+    from mapper_tpu_torch.sequence import Sequence
+
+    def fastq(name, limit=None):
+        lines = (root / name).read_text().splitlines()[: None if limit is None else 4 * limit]
+        return [Sequence.from_text(lines[i][1:], lines[i + 1]) for i in range(0, len(lines), 4)]
+
+    mates = []
+    for k in (1, 2):
+        lines = (root / f"pairs_{k}.fasta").read_text().splitlines()[: DC_READS]
+        mates.extend(Sequence.from_text(lines[i][1:], lines[i + 1]) for i in range(0, len(lines), 2))
+    ref = "".join((root / "ref.fasta").read_text().splitlines()[1:])
+    pos = int(np.random.default_rng(9).integers(0, len(ref) - 5000))
+    return {
+        "150bp": ReadBatch.from_sequences(fastq("short.fastq", DC_READS)),
+        "1000bp": ReadBatch.from_sequences(fastq("long.fastq")),
+        "paired_mates": ReadBatch.from_sequences(mates),
+        "5000bp": ReadBatch.from_sequences([Sequence.from_text("ref5000", ref[pos : pos + 5000])]),
+    }
+
+
+def dc_work(inputs) -> dict:
+    """What this run's data asks of KC1, counted from the plain program's
+    pieces: the valid bases; the blocks entering each level and those left
+    after its merge; the seeds that pass the size filter, and the kept ones
+    (the first V_SLOTS); the values that each kept seed's lookup must read,
+    up to the P_SLOTS vote slots; the vote entries before and after P_SLOTS
+    clips them; and a sort's n log2 n compares over each read's entries."""
     import torch
 
     from mapper_tpu_torch.batch import device_candidates as dc
-    from mapper_tpu_torch.batch.candidates import ReadBatch, generate_candidates
-    from mapper_tpu_torch.batch.engine import upload_reference
-    from mapper_tpu_torch.sequence import Sequence
+
+    codes, lengths, index = inputs["codes"], inputs["lengths"], inputs["index"]
+    valid0 = torch.arange(codes.shape[1], device=codes.device)[None, :] < lengths[:, None]
+    row = dc._base_row(codes, valid0, index["two_bit"])
+    entering = merged = 0
+    for _ in range(dc.NUM_LEVELS):
+        entering += int(row["valid"].sum())
+        row = dc._merge_row_device(row)
+        merged += int(row["valid"].sum())
+    seeds = dc._plain_seeds(inputs)
+    matches = seeds["matches"]
+    # each kept seed's values that land in the P_SLOTS vote slots
+    needed = torch.minimum(torch.clamp(dc.P_SLOTS - (torch.cumsum(matches, dim=1) - matches), min=0), matches)
+    entries = needed.sum(dim=1).double()
+    return {
+        "bases": int(lengths.sum()), "blocks": entering, "merged_blocks": merged,
+        "seeds": int(seeds["seeds"].sum()), "kept_seeds": int(seeds["valid"].sum()),
+        "lookups": int((needed > 0).sum()),
+        "value_sectors": int(((needed * 4 + SECTOR_BYTES - 1) // SECTOR_BYTES).sum()),
+        "vote_entries": int(matches.sum()), "kept_entries": int(entries.sum()),
+        "compares": float((entries * torch.log2(entries.clamp(min=1))).sum()),
+    }
+
+
+def dc_bounds(inputs, work: dict, band_rows: int, kept_rows: int, k_out: int = 8) -> dict:
+    """KC1's and KC2's least times on the card for this run's work: the
+    larger of their bytes over the memory rate and their operations
+    (`KC1_OPS`, `KC2_OPS`) over the int32 rate.  KC1 reads each read's codes
+    and length once, one sector for each kept seed's bin count, and for each
+    seed that votes one sector for its offset and the sectors of its
+    contiguous values, and writes the [B, 2K+1] table; KC2 reads the table
+    and the per-read lengths and half-windows, writes `band_rows` rows of
+    read, strand, window start, lane, n and m (33 bytes)."""
+    import math
+
+    codes = inputs["codes"]
+    b, width = codes.shape
+    search = math.ceil(math.log2(inputs["index"]["seq_starts_tail"].shape[0] + 1))
+    table_bytes = b * (2 * k_out + 1) * 4
+    kc1_bytes = (b * width + b * 8 + SECTOR_BYTES * (work["kept_seeds"] + work["lookups"] + work["value_sectors"])
+                 + table_bytes)
+    kc1_ops = (KC1_OPS["base"] * work["bases"] + KC1_OPS["merge"] * work["blocks"]
+               + KC1_OPS["gapmer"] * work["merged_blocks"] + KC1_OPS["seed"] * work["kept_seeds"]
+               + (KC1_OPS["entry"] + KC1_OPS["search_step"] * search + KC1_OPS["vote"]) * work["kept_entries"]
+               + KC1_OPS["compare"] * work["compares"])
+    kc2_bytes = table_bytes + 2 * b * 8 + 33 * band_rows
+    kc2_ops = KC2_OPS["entry"] * b * k_out + KC2_OPS["row"] * kept_rows
+    out = {}
+    for name, moved, ops in (("candidates", kc1_bytes, kc1_ops), ("fused_rows", kc2_bytes, kc2_ops)):
+        bytes_ms, ops_ms = moved / MEM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+        out[name] = {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "bytes": moved, "operations": ops}
+    return out
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Host-clock milliseconds a call over `reps` calls, synchronized, after
+    one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def max_int_err(got, want) -> int:
+    """max |got - want| of two integer or boolean tensors, as int64."""
+    import torch
+
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+
+
+def compare_dc_kernels(tag: str, inputs, band: int) -> dict:
+    """KC1 and KC2 against their plain versions on the card on one
+    workload, which must be equal (torch.equal, the same dtypes); their
+    CUDA-event and host-clock times beside the plain versions' and their
+    bounds."""
+    import torch
+
+    from mapper_tpu_torch.align import kernels
+    from mapper_tpu_torch.batch import device_candidates as dc
+
+    want = dc.candidates_plain(inputs)
+    got = dc.candidates_program(inputs)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        differ = int((got != want).any(dim=1).sum())
+        raise AssertionError(f"candidates kernel != plain on {tag}: {differ} of {got.shape[0]} reads differ")
+    table = got.clone()
+    rows = dc.fused_rows(table, inputs, band)
+    plain_rows = dc.fused_rows_plain(got, inputs, band)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(rows, plain_rows)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"fused_rows kernel != plain on {tag}: output {i}")
+    votes = got[:, 8:16].long()
+    kept = int(((votes > 0) & ((votes[:, :1] < 6) | (votes * 3 >= votes[:, :1]))).sum())
+    work = dc_work(inputs)
+    bounds = dc_bounds(inputs, work, rows[1].shape[0], kept)
+    out = {
+        "reads": int(got.shape[0]), "width": int(inputs["codes"].shape[1]), "band": band,
+        "in_scratch": kernels.candidates_in_scratch(int(inputs["codes"].shape[1])),
+        "fallback_reads": int(got[:, -1].sum()), "kept_rows": kept, "scored_rows": int(rows[1].shape[0]),
+        **work,
+    }
+    calls = {
+        "candidates": (lambda: dc.candidates_program(inputs), lambda: dc.candidates_plain(inputs),
+                       max_int_err(got, want)),
+        "fused_rows": (lambda: dc.fused_rows(table, inputs, band), lambda: dc.fused_rows_plain(got, inputs, band),
+                       max(max_int_err(a, b) for a, b in zip(rows, plain_rows))),
+    }
+    for name, (kernel, plain, err) in calls.items():
+        ms = cuda_ms(kernel, DC_TIMING_CALLS)
+        out[name] = {
+            "max_abs_err": err, "ms": ms, "wall_ms": wall_ms(kernel, DC_TIMING_CALLS),
+            "plain_ms": cuda_ms(plain, 3), "plain_wall_ms": wall_ms(plain, 3), **bounds[name],
+            "share": bounds[name]["bound_ms"] / ms,
+        }
+        print(f"[device-candidates] {tag} {name}: equal to plain; kernel {ms:.4f} ms (CUDA events; "
+              f"{out[name]['wall_ms']:.4f} ms host clock), plain {out[name]['plain_ms']:.4f} ms "
+              f"({out[name]['plain_wall_ms']:.4f} ms), bound {out[name]['bound_ms']:.4f} ms "
+              f"({out[name]['bound_by']}), {out[name]['share']:.4f} of it", flush=True)
+    print(f"[device-candidates] {tag}: {out['reads']} reads, width {out['width']}, band {band}, "
+          f"scratch row {out['in_scratch']}, {out['fallback_reads']} flagged, {kept} kept rows "
+          f"({out['scored_rows']} scored)", flush=True)
+    return out
+
+
+def busy_python(stop) -> None:
+    """Pure-Python work until `stop` is set: it holds the GIL but for the
+    interpreter's switch requests."""
+    x = 0
+    while not stop.is_set():
+        for i in range(10_000):
+            x += i
+
+
+def contention_ms(fn, reps: int) -> dict:
+    """fn's host-clock milliseconds a call (reps calls, synchronized) alone
+    and beside one busy_python thread, in turns: alone, busy, alone."""
+    import threading
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    readings = {"alone": [], "busy": []}
+    for mode in ("alone", "busy", "alone"):
+        stop = threading.Event()
+        worker = threading.Thread(target=busy_python, args=(stop,)) if mode == "busy" else None
+        if worker is not None:
+            worker.start()
+        try:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            readings[mode].append((time.perf_counter() - t0) / reps * 1e3)
+        finally:
+            stop.set()
+            if worker is not None:
+                worker.join()
+    return readings
+
+
+def device_ops(fn, calls: int = 3) -> dict:
+    """torch.profiler over `calls` calls of fn: device operations (kernels
+    and copies on the card) and device-busy milliseconds a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops, busy_us = 0, 0.0
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            ops += 1
+            busy_us += event.device_time_total
+    return {"device_ops_per_call": ops / calls, "device_busy_ms_per_call": busy_us / calls / 1e3}
+
+
+def device_candidates_programs(root: Path, params, device) -> dict:
+    """The device-candidates kernels and programs on the card, with the
+    engine's band and half-windows: KC1 and KC2 against their plain
+    versions on each of `dc_batches`' workloads (`compare_dc_kernels`); on
+    the 150 bp chunk, the candidates program against the host pass (every
+    read not flagged for fallback), the fused program on the card against
+    the same program run on the CPU (torch.equal over its whole int32
+    output), its CUDA-event and host-clock times beside the plain program's
+    on the card, its device operations a call (torch.profiler), its host
+    time beside a busy Python thread, and the host pass's wall time.
+    Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from mapper_tpu_torch.align.banded import banded_scores_gathered
+    from mapper_tpu_torch.batch import device_candidates as dc
+    from mapper_tpu_torch.batch.candidates import generate_candidates
+    from mapper_tpu_torch.batch.engine import single_end_band, upload_reference
 
     t0 = time.time()
     db = load_database(root)
-    lines = (root / "short.fastq").read_text().splitlines()[: 4 * DC_READS]
-    batch = ReadBatch.from_sequences([Sequence.from_text(lines[i][1:], lines[i + 1]) for i in range(0, len(lines), 4)])
-    print(f"[device-candidates] index loaded, {batch.num_reads} reads in {time.time() - t0:.1f} s", flush=True)
-    max_indel = np.maximum(0, ((batch.lengths * params.max_error_rate - params.deletion_start_penalty)
-                               / params.deletion_extension_penalty).astype(np.int64))
-    band = 64 if int(max_indel.max()) <= 31 else 128
-    shift = np.minimum(max_indel, band // 2)
+    batches = dc_batches(root)
+    concat_np = db.get_sequence_database().concatenated_codes()
+    concat = upload_reference(concat_np, device)
+    print(f"[device-candidates] index loaded, workloads read in {time.time() - t0:.1f} s", flush=True)
+    kernels_numbers, inputs_of = {}, {}
+    for tag, batch in batches.items():
+        band, shift = single_end_band(batch.lengths, params)
+        inputs_of[tag] = (dc.fused_inputs(batch, db, concat, shift, band), band, shift)
+        kernels_numbers[tag] = compare_dc_kernels(tag, *inputs_of[tag][:2])
 
+    batch = batches["150bp"]
+    inputs, band, shift = inputs_of["150bp"]
     host_s = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -875,12 +1151,7 @@ def device_candidates_programs(root: Path, params, device) -> dict:
           f"{batch.num_reads - len(fallback)} reads; {len(fallback)} reads flagged for fallback; "
           f"{len(table)} rows", flush=True)
 
-    inputs = dc.fused_inputs(batch, db, upload_reference(db.get_sequence_database().concatenated_codes(), device),
-                             shift, band)
-    cpu_inputs = dc.fused_inputs(
-        batch, db, upload_reference(db.get_sequence_database().concatenated_codes(), torch.device("cpu")),
-        shift, band,
-    )
+    cpu_inputs = dc.fused_inputs(batch, db, upload_reference(concat_np, torch.device("cpu")), shift, band)
     got = dc.fused_program(inputs, params, band).cpu()
     t0 = time.time()
     want = dc.fused_program(cpu_inputs, params, band)
@@ -891,76 +1162,122 @@ def device_candidates_programs(root: Path, params, device) -> dict:
     print(f"[device-candidates] the fused program's {got.numel()} int32 words on the card equal its CPU run "
           f"(plain scorer, {cpu_s:.1f} s on the host)", flush=True)
 
-    def wall_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
-
-    def candidates():
-        return dc.candidates_program(inputs)
-
     def fused():
         return dc.fused_program(inputs, params, band)
+
+    def fused_plain():  # the same program through the plain versions on the card (the eager program)
+        table = dc.candidates_plain(inputs)
+        table, *rows = dc.fused_rows_plain(table, inputs, band)
+        scores = banded_scores_gathered(inputs["codes"], inputs["concat"], *rows, params, band)
+        return torch.cat([table.reshape(-1), scores.reshape(-1).view(torch.int32)])
+
+    if not torch.equal(fused_plain().cpu(), got):
+        raise AssertionError("the fused program through the plain versions != through the kernels")
+    small = torch.ones(1024, device=device)
+
+    def small_ops():
+        for _ in range(200):
+            small.add_(1)
 
     numbers = {
         "reads": batch.num_reads, "band": band, "read_width": int(inputs["codes"].shape[1]),
         "scored_rows": dc.score_rows(batch.num_reads), "candidate_rows": len(table),
         "fallback_reads": int(len(fallback)),
-        "candidates_ms": cuda_ms(candidates, 10), "fused_ms": cuda_ms(fused, 10),
-        "candidates_wall_ms": wall_ms(candidates, 5), "fused_wall_ms": wall_ms(fused, 5),
+        "candidates_ms": cuda_ms(lambda: dc.candidates_program(inputs), DC_TIMING_CALLS),
+        "fused_ms": cuda_ms(fused, DC_TIMING_CALLS), "fused_plain_ms": cuda_ms(fused_plain, 3),
+        "candidates_wall_ms": wall_ms(lambda: dc.candidates_program(inputs), DC_TIMING_CALLS),
+        "fused_wall_ms": wall_ms(fused, DC_TIMING_CALLS), "fused_plain_wall_ms": wall_ms(fused_plain, 3),
+        "fused_profile": device_ops(fused), "fused_plain_profile": device_ops(fused_plain),
+        "contention_ms_per_call": {"fused": contention_ms(fused, 20), "200_small_ops": contention_ms(small_ops, 20)},
         "host_candidates_ms": [t * 1e3 for t in host_s],
+        "kernels": kernels_numbers,
     }
     print(
-        f"[device-candidates] {batch.num_reads} reads: candidates program {numbers['candidates_ms']:.3f} ms "
-        f"(CUDA events; {numbers['candidates_wall_ms']:.3f} ms host clock, synchronized), fused program "
-        f"{numbers['fused_ms']:.3f} ms ({numbers['fused_wall_ms']:.3f} ms), host generate_candidates "
-        f"{min(host_s) * 1e3:.3f} ms (best of 3 wall times)",
+        f"[device-candidates] {batch.num_reads} reads: candidates program {numbers['candidates_ms']:.4f} ms "
+        f"(CUDA events; {numbers['candidates_wall_ms']:.4f} ms host clock, synchronized), fused program "
+        f"{numbers['fused_ms']:.4f} ms ({numbers['fused_wall_ms']:.4f} ms, "
+        f"{numbers['fused_profile']['device_ops_per_call']:.0f} device operations, "
+        f"{numbers['fused_profile']['device_busy_ms_per_call']:.4f} ms busy), through the plain versions "
+        f"{numbers['fused_plain_ms']:.4f} ms ({numbers['fused_plain_wall_ms']:.4f} ms, "
+        f"{numbers['fused_plain_profile']['device_ops_per_call']:.0f} device operations), host "
+        f"generate_candidates {min(host_s) * 1e3:.3f} ms (best of 3 wall times)",
         flush=True,
     )
+    for name, ms in numbers["contention_ms_per_call"].items():
+        print(f"[contention] {name}: ms a call alone {ms['alone']}, beside a busy Python thread {ms['busy']}",
+              flush=True)
     return numbers
 
 
-def device_candidates_phase(root: Path, kernels, runs: dict) -> dict:
-    """The 100,000-read and 2,000-read CLI runs with
-    MAPPER_TPU_DEVICE_CANDIDATES=1, launch counts read around each: every
-    single-end chunk must take the fused path, SAM, VCF and mutations must be
-    byte-identical to the host-scored twins.  Returns the launch counts of
-    both runs and their align phases beside the kernel-scored runs'."""
-    launches, align = {}, {}
+def fused_run(root: Path, kernels, query_args: list[str], tag: str, twin: dict) -> tuple[dict, dict]:
+    """One CLI run on the fused path (MAPPER_TPU_DEVICE_CANDIDATES=1),
+    launch counts read around it: every single-end chunk takes the fused
+    path, KC1 and KC2 launch once a fused chunk, and SAM, VCF and mutations
+    equal the host-scored twin's.  Returns the
+    run and its launch counts."""
+    kernels.reset_launches()
     os.environ["MAPPER_TPU_DEVICE_CANDIDATES"] = "1"
     try:
-        for tag, queries, kernel in (("short", SHORT, "banded_i16"), ("long", LONG, "banded_f32")):
-            kernels.reset_launches()
-            run = run_cli(root, queries, f"{tag}_fused", host_scoring=False)
-            counts = dict(kernels.LAUNCHES)
-            print(f"[device-candidates] kernel launches in the fused {tag} run: {counts}", flush=True)
-            if counts[kernel] <= 0:
-                raise AssertionError(f"{kernel} was not launched by the fused {tag} run")
-            fused, chunks = run["fused_chunks"] or (0, 0)
-            if not 0 < fused == chunks:
-                raise AssertionError(f"fused {tag} run: {fused} of {chunks} chunks took the fused path")
-            same_outputs(run, runs[f"{tag}_host"], f"{tag}: the fused run vs the host-scored run")
-            for name, n in counts.items():
-                launches[name] = launches.get(name, 0) + n
-            align[tag] = {"fused_chunks": fused, "fused_align_s": run["align_seconds"],
-                          "kernel_scored_align_s": runs[f"{tag}_kernel"]["align_seconds"],
-                          "host_scored_align_s": runs[f"{tag}_host"]["align_seconds"]}
-            print(f"[device-candidates] {tag}: {fused} of {chunks} chunks fused; align phase fused "
-                  f"{run['align_seconds']:.3f} s, kernel-scored {align[tag]['kernel_scored_align_s']:.3f} s, "
-                  f"host-scored {align[tag]['host_scored_align_s']:.3f} s", flush=True)
+        run = run_cli(root, query_args, tag, host_scoring=False)
     finally:
         os.environ.pop("MAPPER_TPU_DEVICE_CANDIDATES", None)
+    counts = dict(kernels.LAUNCHES)
+    fused, chunks = run["fused_chunks"]
+    print(f"[device-candidates] {tag}: {fused} of {chunks} single-end chunks fused; launches {counts}", flush=True)
+    if not 0 < fused == chunks:
+        raise AssertionError(f"{tag}: {fused} of {chunks} single-end chunks took the fused path")
+    for name in ("candidates", "fused_rows"):
+        if counts[name] != fused:
+            raise AssertionError(f"{tag}: {name} launched {counts[name]} times for {fused} fused chunks")
+    same_outputs(run, twin, f"{tag}: the fused run vs the host-scored run")
+    return run, counts
+
+
+def device_candidates_phase(root: Path, kernels, runs: dict) -> dict:
+    """The 150 bp CLI run on the fused path and kernel-scored in turns after
+    phase 5's runs (fused, kernel-scored, kernel-scored, fused; the first
+    CLI run of the process, phase 5's, is the warm-up), and the 1,000 bp run
+    on the fused path once.  Every single-end chunk must take the fused
+    path, KC1 and KC2 launch once a fused chunk, and SAM, VCF and mutations
+    are byte-identical to the host-scored twins.  Returns the launch counts
+    of the fused runs summed and the align phases in turn order."""
+    launches, align = {}, {}
+    turns = [("short_fused", True), ("short_kernel_turn", False), ("short_kernel_turn2", False),
+             ("short_fused_turn2", True)]
+    align["short"] = []
+    for tag, on_fused in turns:
+        if on_fused:
+            run, counts = fused_run(root, kernels, SHORT, tag, runs["short_host"])
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+        else:
+            run = run_cli(root, SHORT, tag, host_scoring=False)
+            same_outputs(run, runs["short_host"], f"{tag}: the kernel-scored run vs the host-scored run")
+        align["short"].append({"run": tag, "fused": on_fused, "align_s": run["align_seconds"],
+                               "wall_s": run["wall_seconds"]})
+    run, counts = fused_run(root, kernels, LONG, "long_fused", runs["long_host"])
+    if counts["banded_f32"] <= 0:
+        raise AssertionError("long_fused: banded_f32 was not launched")
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    align["long"] = {"fused_align_s": run["align_seconds"],
+                     "kernel_scored_align_s": runs["long_kernel"]["align_seconds"],
+                     "host_scored_align_s": runs["long_host"]["align_seconds"]}
+    fused_s = [r["align_s"] for r in align["short"] if r["fused"]]
+    kernel_s = [r["align_s"] for r in align["short"] if not r["fused"]]
+    align["short_fused_over_kernel"] = sum(fused_s) / sum(kernel_s)
+    print(f"[device-candidates] 150 bp align phases in turns: "
+          + ", ".join(f"{r['run']} {r['align_s']:.3f} s" for r in align["short"])
+          + f"; fused / kernel-scored {align['short_fused_over_kernel']:.3f}; 1,000 bp fused "
+          f"{align['long']['fused_align_s']:.3f} s, kernel-scored {align['long']['kernel_scored_align_s']:.3f} s",
+          flush=True)
     return {"launches": launches, "align": align}
 
 
-def twin_phase(root: Path, kernels, query_args: list[str], tag: str, kernel: str) -> dict:
+def twin_phase(root: Path, kernels, query_args: list[str], tag: str, kernel: str) -> tuple[dict, dict]:
     """One kernel-scored CLI run (launch counts read around it; `kernel` must
     launch) and its host-scored twin (no launch), byte-identical.  Returns
-    the kernel run's launch counts."""
+    the kernel run's launch counts and the twin run."""
     kernels.reset_launches()
     run = run_cli(root, query_args, f"{tag}_kernel", host_scoring=False)
     launches = dict(kernels.LAUNCHES)
@@ -972,7 +1289,7 @@ def twin_phase(root: Path, kernels, query_args: list[str], tag: str, kernel: str
     if any(kernels.LAUNCHES.values()):
         raise AssertionError(f"the host-scored {tag} run launched kernels: {kernels.LAUNCHES}")
     same_outputs(run, twin, f"{tag}: the kernel-scored run vs the host-scored run")
-    return launches
+    return launches, twin
 
 
 # ---- the parallel slice: a mesh of two shards on one card, two processes --
@@ -1291,10 +1608,11 @@ def _dp_rate(dp_type: str) -> dict:
     return {"bound_ops_per_cell": ops_per_cell, "bound_ops_per_s": ops_per_s}
 
 
-def kernel_entries(i16, f32, host_rows, host_extra, probe_rows, by_path) -> list[dict]:
+def kernel_entries(i16, f32, host_rows, host_extra, probe_rows, dc_numbers, by_path) -> list[dict]:
     """The `kernels` line: one entry per kernel with its own path's launches
     ("launches", the CLI for the engine's kernels, the host-window path for
-    K3-K5, the probe entry for P1-P9), its launches in the main path, the
+    K3-K5, the probe entry for P1-P9, the fused CLI runs for KC1 and KC2),
+    its launches in the main path, the
     100,000-read single-end CLI run ("launches_main_path"), each path's count
     read around that path alone ("launches_by_path"), and its times, bound and
     yardstick.  Raises if a kernel has no launch on its own path."""
@@ -1325,6 +1643,15 @@ def kernel_entries(i16, f32, host_rows, host_extra, probe_rows, by_path) -> list
                                                  f"{len(probe_rows[stage][6])} bodies with one PyTorch call",
                                       "bodies": probe_rows[stage][6]})
            for stage, site in SITES.items()},
+        # KC1 and KC2 at the 150 bp chunk, the CLI's; every workload in by_workload
+        **{name: (DC_SOURCE, DC_REPLACES[name], "device_candidates", dc_numbers["150bp"][name]["max_abs_err"],
+                  *(dc_numbers["150bp"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")), None,
+                  {"library": "no PyTorch call computes the pyramid, the vote or the kept rows' geometry",
+                   "wall_ms": dc_numbers["150bp"][name]["wall_ms"],
+                   "by_workload": {tag: {k: w[name][k] for k in ("ms", "wall_ms", "plain_ms", "bound_ms", "bound_by",
+                                                                 "share", "max_abs_err")}
+                                   for tag, w in dc_numbers.items()}})
+           for name in ("candidates", "fused_rows")},
     }
     entries = []
     for name, (source, replaces, path, err, ms, plain_ms, bound_ms, bound_by, library_ms, extra) in rows.items():
@@ -1337,7 +1664,7 @@ def kernel_entries(i16, f32, host_rows, host_extra, probe_rows, by_path) -> list
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             # probes: one CUDA-graph replay of 20 calls; the rest: 20 calls
-            # issued from Python, each much longer than its issue time
+            # (KC1 and KC2 10) issued from Python
             "timing": "cuda_graph_replay" if path == "probe_i16" else "cuda_events",
         })
     for entry in entries:
@@ -1397,8 +1724,11 @@ def main() -> int:
         pileup_launches = device_pileup_phase(root, kernels, runs["short_kernel"])
         programs = device_candidates_programs(root, params, device)
         fused = device_candidates_phase(root, kernels, runs)
-        paired_launches = twin_phase(root, kernels, PAIRED, "paired", "banded_i16")
-        split_launches = twin_phase(root, kernels, SPLIT, "split_queries", "banded_f32")
+        paired_launches, _ = twin_phase(root, kernels, PAIRED, "paired", "banded_i16")
+        # pairs take the paired path on the fused setting too, as in the JAX
+        # engine: phase 7's paired_mates chunk holds KC1 and KC2 at their shape
+        split_launches, split_twin = twin_phase(root, kernels, SPLIT, "split_queries", "banded_f32")
+        _, split_fused = fused_run(root, kernels, SPLIT, "split_queries_fused", split_twin)
         mesh_launches, mesh_times = mesh_engine_phase(root, params, kernels, mesh)
         values_ratio = sharded_index_phase(root, mesh)
         multi_launches, multi_align = multi_process_phase(root, runs["short_kernel"])
@@ -1412,9 +1742,10 @@ def main() -> int:
         "main_path": main_launches, "cli": cli_launches, "host_window": window_launches,
         "probe_i16": probe_launches, "device_pileup": pileup_launches,
         "device_candidates": fused["launches"], "paired": paired_launches, "split_queries": split_launches,
+        "split_queries_fused": split_fused,
         "mesh": mesh_launches, "multi_process": multi_launches, "sharded_scores": sharded_launches,
     }
-    entries = kernel_entries(i16, f32, host_rows, host_extra, probe_rows, by_path)
+    entries = kernel_entries(i16, f32, host_rows, host_extra, probe_rows, programs["kernels"], by_path)
     print(json.dumps({"kernels": entries}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -31,23 +31,17 @@ import io
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
-import threading
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+# the card's name line and the contention measurement, as chip_smoke.py takes them
+from chip_smoke import contention_ms, gpu_line  # noqa: E402
 
 READS = 4096
 CALLS = 3
-
-
-def gpu_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def simulate(root: Path) -> None:
@@ -165,41 +159,6 @@ def profile_programs(root: Path, device) -> dict:
         print(f"[contention] {name}: ms a call alone {ms['alone']}, beside a busy Python thread {ms['busy']}",
               flush=True)
     return result
-
-
-def busy_python(stop: threading.Event) -> None:
-    """Pure-Python work until `stop` is set: it holds the GIL but for the
-    interpreter's switch requests."""
-    x = 0
-    while not stop.is_set():
-        for i in range(10_000):
-            x += i
-
-
-def contention_ms(fn, reps: int) -> dict:
-    """fn's host-clock milliseconds a call (reps calls, synchronized) alone
-    and beside one busy_python thread, in turns: alone, busy, alone."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    readings = {"alone": [], "busy": []}
-    for mode in ("alone", "busy", "alone"):
-        stop = threading.Event()
-        worker = threading.Thread(target=busy_python, args=(stop,)) if mode == "busy" else None
-        if worker is not None:
-            worker.start()
-        try:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            readings[mode].append((time.perf_counter() - t0) / reps * 1e3)
-        finally:
-            stop.set()
-            if worker is not None:
-                worker.join()
-    return readings
 
 
 def main() -> int:

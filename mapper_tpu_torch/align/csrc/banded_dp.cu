@@ -47,18 +47,17 @@
 #include <cuda_runtime.h>
 
 #include "dp_core.cuh"
+#include "launch.cuh"
 
 namespace {
 
 using namespace dp;
+using cuda_launch::launch_kernel;
 
 constexpr int kHalf = 64;  // the packed kernel's per-candidate band
 constexpr int kCandsPerBlock = 4;  // the warp kernels' candidates a block, one warp each
 constexpr int kPairsPerBlock = 8;  // the packed kernel's pairs a block, one warp each
 constexpr int kPenTable = 16 * 16;  // the warp kernels' penalty table: (query, window) code pairs
-// Dynamic shared memory a block takes without opting in, and after (sm_90).
-constexpr size_t kSmemDefault = 48 * 1024;
-constexpr int kSmemOptIn = 232448;
 
 // The bands the warp kernels take (kernels.py's WARP_BANDS); any other band
 // takes a block kernel.
@@ -82,22 +81,6 @@ size_t warp_smem(int64_t width, int band, size_t entry) {
 // query codes [lq] and windows [lq + kHalf], the two rows' codes a byte.
 size_t pair_smem(int64_t lq) {
   return kPenTable * sizeof(int16_t) + static_cast<size_t>(kPairsPerBlock * (2 * lq + kHalf));
-}
-
-// Launches `kernel` on `grid` blocks of `block` threads with `smem` bytes of
-// dynamic shared memory; above 48 KB the kernel opts in first, to the card's
-// most (kernels.py's _SMEM_LIMIT bounds `smem`).  Returns the opt-in's or
-// the launch's CUDA error.
-template <class... Params, class... Args>
-int launch_kernel(void (*kernel)(Params...), unsigned grid, unsigned block, size_t smem,
-                  void* stream, Args... args) {
-  if (smem > kSmemDefault) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
 }
 
 unsigned warp_grid(int64_t num_cands) {

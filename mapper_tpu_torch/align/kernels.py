@@ -1,21 +1,26 @@
 """Build, bind and launch the hand-written CUDA kernels of `csrc/`.
 
-The sources (`banded_dp.cu`, `probe_i16.cu`, and the DP step they share,
-`dp_core.cuh`) are compiled at first use by `nvcc`, one process per source,
+The sources (`banded_dp.cu`, `probe_i16.cu`, `candidates.cu`, the DP step
+the first two share, `dp_core.cuh`, and the launch all share, `launch.cuh`)
+are compiled at first use by `nvcc`, one process per source,
 all started together, and linked into one shared library with a plain C
 interface, under a lock, into `mapper_tpu_torch/_build/`, keyed by the
 sha256 of every source and header and of the flags, and loaded with ctypes.
 There is no fallback: a missing `nvcc` or a failed build raises with the
 compiler's message.
 
-Three kinds of entry:
+Four kinds of entry:
 - `banded_i16` and `banded_f32` score candidates against a reference held on
   the device (reads, reference and per-candidate indices);
 - `banded_i16_packed`, `banded_roll_f32` and `banded_chunk_f32` score
   host-built rows: query codes q [B, LQ] and windows w [B, LW >= LQ + band],
   uint8, with lengths n and m;
 - `probe_i16` runs one body of the int16 probe kernels (P1-P9) on an int16
-  [rows, lanes] block, lanes 64, 128 or 256.
+  [rows, lanes] block, lanes 64, 128 or 256;
+- `candidates` (KC1) and `fused_rows` (KC2) run the device-candidates
+  program of `batch/device_candidates.py`: the per-read top-K vote table
+  from the read codes and the merged index, one block a read, and the
+  scoring rows of the table's kept entries, one block a chunk.
 `banded_i16`, `banded_f32`, `banded_roll_f32` and `banded_chunk_f32` run one
 warp a candidate at the bands of `WARP_BANDS`, one block a candidate
 elsewhere; `banded_i16_packed` (band 64 only) runs one warp a pair of
@@ -59,6 +64,8 @@ LAUNCHES = {
     "banded_roll_f32": 0,
     "banded_chunk_f32": 0,
     **{f"probe_i16_{stage}": 0 for stage in PROBE_STAGES},
+    "candidates": 0,
+    "fused_rows": 0,
 }
 PACKED_BAND = 64  # banded_i16_packed's per-candidate band (kHalf in the source)
 # the bands banded_i16, banded_f32, banded_roll_f32 and banded_chunk_f32 run
@@ -75,6 +82,13 @@ PROBE_LANES = (64, 128, 256)  # the lane counts the probe kernel takes
 # dynamic shared memory a block may take on sm_90 (kSmemOptIn): a launch above
 # the 48 KB default opts in first
 _SMEM_LIMIT = 232448
+# candidates_kernel's (KC1) fixed shared memory (kFixedSmem): the vote keys
+# and counts, the seed list, the reduction slots
+_CANDIDATES_FIXED_SMEM = 1024 * 8 + 32 * 8 + 1024 * 4 + 2 * 32 * 4 + 512 * 4 * 4 + 512
+# resident blocks a multiprocessor a launch with the row in its scratch
+# buffer takes: its grid, and the buffer's slices
+_SCRATCH_BLOCKS_PER_SM = 4
+_FUSED_ROWS_SMEM = 32 * 4  # fused_rows_kernel's scan slots (rows_smem)
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -84,6 +98,20 @@ _I64 = ctypes.c_int64
 _INT, _F32 = ctypes.c_int, ctypes.c_float
 _COMMON_ARGS = [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _INT]
 _ROW_ARGS = [_P, _I64, _P, _I64, _P, _P, _I64]  # q, lq, w, lw, n, m, B
+
+# each launcher's ctypes argument types (every one returns a CUDA error as int)
+_SIGNATURES = {
+    "mapper_banded_i16": _COMMON_ARGS + [_INT] * 6 + [_F32, _P, _P, _P],
+    "mapper_banded_f32": _COMMON_ARGS + [_F32] * 6 + [_P, _P, _P],
+    "mapper_banded_i16_packed": _ROW_ARGS + [_INT] * 6 + [_F32, _P, _P, _P],
+    "mapper_banded_roll_f32": _ROW_ARGS + [_INT] + [_F32] * 6 + [_P, _P],
+    "mapper_banded_chunk_f32": _ROW_ARGS + [_INT, _INT] + [_F32] * 6 + [_P, _P],
+    "mapper_probe_i16": [_INT, _INT, _P, _P, _I64, _INT, _INT, _P],
+    "mapper_candidates": [_P, _I64, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _I64] + [_I64] * 5 + [_INT, _P, _P, _I64, _P],
+    "mapper_fused_rows": [_P, _I64, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT]
+                         + [_P] * 6 + [_P],
+}
 
 
 def find_nvcc() -> str | None:
@@ -165,15 +193,7 @@ def library(build_dir: Path | None = None, csrc: Path | None = None):
         if not path.exists():
             compile_library(path, csrc)
         lib = ctypes.CDLL(str(path))
-        signatures = {
-            "mapper_banded_i16": _COMMON_ARGS + [_INT] * 6 + [_F32, _P, _P, _P],
-            "mapper_banded_f32": _COMMON_ARGS + [_F32] * 6 + [_P, _P, _P],
-            "mapper_banded_i16_packed": _ROW_ARGS + [_INT] * 6 + [_F32, _P, _P, _P],
-            "mapper_banded_roll_f32": _ROW_ARGS + [_INT] + [_F32] * 6 + [_P, _P],
-            "mapper_banded_chunk_f32": _ROW_ARGS + [_INT, _INT] + [_F32] * 6 + [_P, _P],
-            "mapper_probe_i16": [_INT, _INT, _P, _P, _I64, _INT, _INT, _P],
-        }
-        for name, argtypes in signatures.items():
+        for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = _INT
@@ -228,12 +248,31 @@ def _warp_smem(width: int, band: int, entry: int) -> int:
     return _PEN_TABLE * entry + _CANDS_PER_BLOCK * (2 * width + band)
 
 
-def smem_bytes(name: str, lq: int, band: int, chunk: int | None = None) -> int:
-    """The dynamic shared memory a launch of scorer `name` takes at read
+def candidates_row_bytes(width: int) -> int:
+    """The bytes of one read's row in candidates_kernel (`row_bytes`): two
+    lists of `width` 17-byte blocks and two prefix tables of width + 1
+    4-byte sums, rounded up to 16 bytes."""
+    return (2 * width * 17 + 2 * (width + 1) * 4 + 15) // 16 * 16
+
+
+def candidates_in_scratch(width: int) -> bool:
+    """Whether candidates_kernel keeps a read's row in a scratch buffer:
+    where the row and the fixed part do not fit the shared memory."""
+    return _CANDIDATES_FIXED_SMEM + candidates_row_bytes(width) > _SMEM_LIMIT
+
+
+def smem_bytes(name: str, lq: int, band: int = 0, chunk: int | None = None) -> int:
+    """The dynamic shared memory a launch of kernel `name` takes at read
     width `lq` (and `chunk`, for banded_chunk_f32): the sum its launcher in
-    `banded_dp.cu` passes.  banded_chunk_f32's warp kernel stages
-    min(chunk, lq) positions at a time: a chunk wider than the rows is one
-    chunk either way; banded_roll_f32's stages the whole row."""
+    `banded_dp.cu` or `candidates.cu` passes.  banded_chunk_f32's warp
+    kernel stages min(chunk, lq) positions at a time: a chunk wider than the
+    rows is one chunk either way; banded_roll_f32's stages the whole row.
+    `candidates` takes the row's bytes where it fits (`candidates_smem`),
+    `fused_rows` its scan slots; neither takes a band."""
+    if name == "candidates":
+        return _CANDIDATES_FIXED_SMEM + (0 if candidates_in_scratch(lq) else candidates_row_bytes(lq))
+    if name == "fused_rows":
+        return _FUSED_ROWS_SMEM
     if name == "banded_i16_packed":  # pair_smem: two rows a warp, their codes a byte
         return _PEN_TABLE * _PEN_ENTRY_BYTES[name] + _PAIRS_PER_BLOCK * (2 * lq + PACKED_BAND)
     warp = band in WARP_BANDS
@@ -452,3 +491,114 @@ def probe_i16(stage: str, body: int, x, reduces: bool):
         raise RuntimeError(f"probe_i16_{stage} body {body} launch failed: CUDA error {err}")
     _count(f"probe_i16_{stage}")
     return out
+
+
+# the merged index's tensors candidates_kernel reads, by dtype
+_INDEX_INT64 = ("capacities", "caps", "bases", "rev_flags", "fwd_index", "seq_lengths", "rc_index",
+                "seq_starts", "seq_starts_tail")
+_INDEX_INT32 = ("counts", "offsets", "values")
+
+
+def _check_k(k_out: int) -> None:
+    if k_out < 1:
+        raise ValueError(f"k_out {k_out} < 1")
+
+
+def candidates(codes, lengths, index: dict, max_size: int, min_size: int, n_seqs: int, span: int,
+               bias: int, k_out: int):
+    """KC1: the candidates program on read codes [B, W] uint8 (0-padded, W
+    the row width) and lengths [B] int64, against the merged index tensors
+    of `device_candidates.device_index_arrays`.  Returns [B, 2K+1] int32:
+    per read the top-K vote keys (`_NO_KEY` where a rank is empty), their
+    votes and the fallback flag.  One block a read; a row too wide for the
+    shared memory (`candidates_in_scratch`) lives in a scratch buffer of
+    `_SCRATCH_BLOCKS_PER_SM` slices a multiprocessor, the blocks walking the
+    reads."""
+    device = _cuda_device(codes)
+    _check("codes", codes, torch.uint8, 2, device)
+    _check("lengths", lengths, torch.int64, 1, device)
+    for name in _INDEX_INT64:
+        _check(name, index[name], torch.int64, 1, device)
+    for name in _INDEX_INT32:
+        _check(name, index[name], torch.int32, 1, device)
+    _check_k(k_out)
+    b, width = codes.shape
+    if lengths.shape[0] != b:
+        raise ValueError(f"lengths: {lengths.shape[0]} rows, expected {b}")
+    if b >= 2**31:
+        raise ValueError(f"{b} reads exceed one launch")
+    if index["capacities"].shape[0] == 0:
+        raise ValueError("empty index")
+    out = torch.empty((b, 2 * k_out + 1), dtype=torch.int32, device=device)
+    if b == 0:
+        return out
+    grid, scratch = b, None
+    if candidates_in_scratch(width):
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        grid = min(b, _SCRATCH_BLOCKS_PER_SM * sms)
+        scratch = torch.empty(grid * candidates_row_bytes(width), dtype=torch.uint8, device=device)
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = lib.mapper_candidates(
+            codes.data_ptr(), width, lengths.data_ptr(), b,
+            index["capacities"].data_ptr(), index["caps"].data_ptr(), index["bases"].data_ptr(),
+            index["capacities"].shape[0], index["counts"].data_ptr(), index["offsets"].data_ptr(),
+            index["values"].data_ptr(), index["rev_flags"].data_ptr(), index["fwd_index"].data_ptr(),
+            index["seq_lengths"].data_ptr(), index["rc_index"].data_ptr(), index["seq_starts"].data_ptr(),
+            index["seq_starts_tail"].data_ptr(), index["seq_starts_tail"].shape[0],
+            int(max_size), int(min_size), int(n_seqs), int(span), int(bias), int(k_out),
+            out.data_ptr(), _ptr(scratch), grid, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"candidates launch failed: CUDA error {err}")
+    _count("candidates")
+    return out
+
+
+def fused_rows(table, lengths, shift, seq_lengths, seq_starts, n_seqs: int, span: int, bias: int,
+               c_slots: int, band: int, k_out: int):
+    """KC2: the scoring rows of the kept entries of KC1's table [B, 2K+1]
+    int32, in read-major, rank-minor order, in `c_slots` rows.  Returns
+    (table, read_id int64, reversed_ bool, win_start int64, lane int64 in
+    [0, band), n int32, m int32): `banded_scores_gathered`'s vectors.  A kept
+    entry past the budget sets its read's fallback flag in `table`, in
+    place (the table is returned).  One block for the whole table."""
+    device = _cuda_device(table)
+    _check("table", table, torch.int32, 2, device)
+    for name, t in (("lengths", lengths), ("shift", shift), ("seq_lengths", seq_lengths),
+                    ("seq_starts", seq_starts)):
+        _check(name, t, torch.int64, 1, device)
+    _check_k(k_out)
+    _check_band(band)
+    b = table.shape[0]
+    if table.shape[1] != 2 * k_out + 1:
+        raise ValueError(f"table: {table.shape[1]} columns, expected {2 * k_out + 1}")
+    for name, t in (("lengths", lengths), ("shift", shift)):
+        if t.shape[0] != b:
+            raise ValueError(f"{name}: {t.shape[0]} rows, expected {b}")
+    if n_seqs < 1 or span < 1:
+        raise ValueError(f"n_seqs {n_seqs} and span {span} must be positive")
+
+    def empty(dtype):
+        return torch.empty(c_slots, dtype=dtype, device=device)
+
+    rows = (empty(torch.int64), empty(torch.bool), empty(torch.int64), empty(torch.int64),
+            empty(torch.int32), empty(torch.int32))
+    if c_slots == 0:
+        return (table, *rows)
+    # the padding rows take read 0's and contig 0's geometry
+    if b == 0 or seq_lengths.shape[0] == 0:
+        raise ValueError("empty table or reference")
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = lib.mapper_fused_rows(
+            table.data_ptr(), b, int(k_out), lengths.data_ptr(), shift.data_ptr(),
+            seq_lengths.data_ptr(), seq_starts.data_ptr(), int(n_seqs), int(span), int(bias),
+            int(c_slots), int(band), *(t.data_ptr() for t in rows), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_rows launch failed: CUDA error {err}")
+    _count("fused_rows")
+    return (table, *rows)

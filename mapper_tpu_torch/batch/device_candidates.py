@@ -18,8 +18,15 @@ leaves int64.
 The candidate table equals `batch/candidates.py`'s `generate_candidates` on
 every read the fixed budgets let through (NUM_LEVELS pyramid levels, V_SLOTS
 usable seeds, P_SLOTS vote entries); the others are flagged for the host.
-The fused program scores the kept rows with `banded_scores_gathered`: the
-plain version on a CPU device, the hand-written kernels on a CUDA device.
+The fused program scores the kept rows with `banded_scores_gathered`.
+
+Each program has a plain version here (`candidates_plain`, and
+`fused_rows_plain` for the kept rows' compaction and geometry) and a
+hand-written CUDA kernel (`align/csrc/candidates.cu`: KC1
+`candidates_kernel`, one block a read, and KC2 `fused_rows_kernel`, one
+block a chunk).  `candidates_program`, `fused_rows` and `fused_program`
+take the plain versions on a CPU tensor and launch the kernels on a CUDA
+tensor; any other device raises.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import contextlib
 import numpy as np
 import torch
 
+from mapper_tpu_torch.align import kernels
 from mapper_tpu_torch.align.banded import banded_scores_gathered
 from mapper_tpu_torch.index.hashblock import (
     GAPMER_MULTIPLIER,
@@ -374,13 +382,35 @@ def _rank_compact(fields: list, valid: torch.Tensor, width: int):
     return out, counts
 
 
+def _device_of(inputs: dict, what: str) -> torch.device:
+    device = inputs["codes"].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {device}")
+    return device
+
+
 def candidates_program(inputs: dict, k_out: int = 8) -> torch.Tensor:
     """The candidates program on `program_inputs`, on their device: [B, 2K+1]
     int32, per read the top-K vote keys (`_NO_KEY` where the rank is empty),
-    their votes and the fallback flag."""
+    their votes and the fallback flag.  `candidates_plain` on the CPU, KC1
+    (`kernels.candidates`) on a card."""
+    if _device_of(inputs, "candidates_program").type == "cpu":
+        return candidates_plain(inputs, k_out)
+    return kernels.candidates(
+        inputs["codes"], inputs["lengths"], inputs["index"], inputs["max_size"], inputs["min_size"],
+        inputs["n_seqs"], inputs["span"], inputs["bias"], k_out,
+    )
+
+
+def _plain_seeds(inputs: dict) -> dict:
+    """The candidates program's first half in PyTorch tensor operations:
+    pyramid, gapmers and the size filter, the passing seeds compacted to
+    V_SLOTS slots in level-major order, and their bin lookup.  Returns the
+    seeds' fields, "bin" and "matches" (0 where a seed is not usable), per
+    read "seeds" (the passing seeds before V_SLOTS clips them) and
+    "unconverged"."""
     codes, lengths, index = inputs["codes"], inputs["lengths"], inputs["index"]
     max_size, min_size = inputs["max_size"], inputs["min_size"]
-    n_seqs, span, bias = inputs["n_seqs"], inputs["span"], inputs["bias"]
     b, l = codes.shape
     device = codes.device
     valid0 = torch.arange(l, device=device)[None, :] < lengths[:, None]
@@ -409,7 +439,6 @@ def candidates_program(inputs: dict, k_out: int = 8) -> torch.Tensor:
     (c_key, c_nb, c_start, c_len, c_primary), seed_counts = _rank_compact(
         [_flat(i) for i in range(5)], _flat(5), V_SLOTS
     )
-    seed_overflow = seed_counts > V_SLOTS
     c_valid = torch.arange(V_SLOTS, device=device)[None, :] < torch.clamp(seed_counts, max=V_SLOTS)[:, None]
     nb = torch.clamp(c_nb, 0, index["capacities"].shape[0] - 1)
     cap = index["capacities"][nb]
@@ -418,7 +447,24 @@ def candidates_program(inputs: dict, k_out: int = 8) -> torch.Tensor:
     cnt = index["counts"][c_bin].long()
     limit = torch.clamp(index["caps"][nb], max=MAX_MATCHES_PER_SEED)
     usable = c_valid & (cnt > 0) & (cnt <= limit)
-    c_cnt = torch.where(usable, cnt, 0)
+    return {
+        "start": c_start, "length": c_len, "primary": c_primary, "valid": c_valid,
+        "bin": c_bin, "matches": torch.where(usable, cnt, 0),
+        "seeds": seed_counts, "unconverged": unconverged,
+    }
+
+
+def candidates_plain(inputs: dict, k_out: int = 8) -> torch.Tensor:
+    """The candidates program in PyTorch tensor operations (KC1's plain
+    version): pyramid, gapmers, lookup, votes by a per-row sort, top-K."""
+    lengths, index = inputs["lengths"], inputs["index"]
+    n_seqs, span, bias = inputs["n_seqs"], inputs["span"], inputs["bias"]
+    b = lengths.shape[0]
+    device = lengths.device
+    seeds = _plain_seeds(inputs)
+    c_start, c_len, c_primary, c_valid = seeds["start"], seeds["length"], seeds["primary"], seeds["valid"]
+    c_bin, c_cnt = seeds["bin"], seeds["matches"]
+    seed_overflow = seeds["seeds"] > V_SLOTS
 
     # ---- expand matches: [B, V, M] encoded global positions ----
     j = torch.arange(MAX_MATCHES_PER_SEED, device=device)[None, None, :]
@@ -472,7 +518,7 @@ def candidates_program(inputs: dict, k_out: int = 8) -> torch.Tensor:
         out_keys.append(best_key)
         out_votes.append(best_cnt)
         remaining = remaining & (p_key != best_key[:, None])
-    fallback = unconverged | seed_overflow | entry_overflow
+    fallback = seeds["unconverged"] | seed_overflow | entry_overflow
     # one stacked int32 output: one copy back to the host
     return torch.cat(
         [torch.stack(out_keys, dim=1), torch.stack(out_votes, dim=1), fallback.to(torch.int64)[:, None]],
@@ -605,12 +651,37 @@ def fused_program(inputs: dict, params, band: int, k_out: int = 8) -> torch.Tens
     ungapped at the voted lane) bit-cast to int32, for the kept rows in
     read-major, vote-rank-minor order: the order the host reproduces from
     the decoded table, so no row metadata needs to come back."""
-    codes, lengths, index = inputs["codes"], inputs["lengths"], inputs["index"]
+    table = candidates_program(inputs, k_out)
+    table, *rows = fused_rows(table, inputs, band, k_out)
+    scores = banded_scores_gathered(inputs["codes"], inputs["concat"], *rows, params, band)  # [2, C] float32
+    return torch.cat([table.reshape(-1), scores.reshape(-1).view(torch.int32)])
+
+
+def fused_rows(table: torch.Tensor, inputs: dict, band: int, k_out: int = 8) -> tuple:
+    """The kept rows of the candidates program's `table` and their scoring
+    geometry, on their device: (table with the C-budget overflow in its
+    fallback column, then `banded_scores_gathered`'s read_id, reversed_,
+    win_start, lane, n and m over `score_rows(B)` rows).
+    `fused_rows_plain` on the CPU, KC2 (`kernels.fused_rows`, which updates
+    `table` in place) on a card."""
+    if _device_of(inputs, "fused_rows").type == "cpu":
+        return fused_rows_plain(table, inputs, band, k_out)
+    index = inputs["index"]
+    return kernels.fused_rows(
+        table, inputs["lengths"], inputs["shift"], index["seq_lengths"], index["seq_starts"],
+        inputs["n_seqs"], inputs["span"], inputs["bias"], score_rows(table.shape[0]), band, k_out,
+    )
+
+
+def fused_rows_plain(table: torch.Tensor, inputs: dict, band: int, k_out: int = 8) -> tuple:
+    """`fused_rows` in PyTorch tensor operations (KC2's plain version); the
+    returned table is a new tensor."""
+    lengths, index = inputs["lengths"], inputs["index"]
     n_seqs, span, bias = inputs["n_seqs"], inputs["span"], inputs["bias"]
-    b = codes.shape[0]
+    b = table.shape[0]
     c_slots = score_rows(b)
-    device = codes.device
-    table = candidates_program(inputs, k_out).long()
+    device = table.device
+    table = table.long()
 
     keys = table[:, :k_out]
     votes = table[:, k_out : 2 * k_out]
@@ -647,12 +718,10 @@ def fused_program(inputs: dict, params, band: int, k_out: int = 8) -> torch.Tens
     lane = c_offv - win_start_local
     win_start_global = index["seq_starts"][c_seq] + win_start_local
     n_row = torch.where(c_valid, torch.clamp(n_row, min=1), 1)
-
-    scores = banded_scores_gathered(
-        codes, inputs["concat"], c_read, c_mrev != 0, win_start_global,
-        torch.clamp(lane, 0, band - 1), n_row, w_len, params, band,
-    )  # [2, C] float32
-    return torch.cat([table.to(torch.int32).reshape(-1), scores.reshape(-1).view(torch.int32)])
+    return (
+        table.to(torch.int32), c_read, c_mrev != 0, win_start_global, torch.clamp(lane, 0, band - 1),
+        n_row.to(torch.int32), w_len.to(torch.int32),
+    )
 
 
 def score_rows(num_reads: int) -> int:

@@ -78,6 +78,23 @@ def upload_reference(concat_np: np.ndarray, device: torch.device) -> torch.Tenso
     return torch.from_numpy(np.ascontiguousarray(concat_np, dtype=np.uint8)).to(device)
 
 
+def single_end_band(lengths: np.ndarray, p, band: int | None = None) -> tuple[int, np.ndarray]:
+    """A single-end chunk's band and per-read half-windows: each read's
+    indel budget from its length and the penalties; band 64 when every
+    budget fits in 31, else 128, unless `band` is given; the half-windows
+    are the budgets clipped at half the band."""
+    max_indel = np.maximum(
+        0,
+        (
+            (lengths * p.max_error_rate - p.deletion_start_penalty)
+            / p.deletion_extension_penalty
+        ).astype(np.int64),
+    )
+    if band is None:
+        band = 64 if int(max_indel.max(initial=0)) <= 31 else 128
+    return band, np.minimum(max_indel, band // 2)
+
+
 class BatchAligner:
     def __init__(
         self,
@@ -1268,18 +1285,7 @@ class BatchAligner:
         num_reads = batch.num_reads
         self.stats_batch_reads += num_reads
 
-        max_indel = np.maximum(
-            0,
-            (
-                (batch.lengths * p.max_error_rate - p.deletion_start_penalty)
-                / p.deletion_extension_penalty
-            ).astype(np.int64),
-        )
-        if self.band is not None:
-            band = self.band
-        else:
-            band = 64 if int(max_indel.max(initial=0)) <= 31 else 128
-        shift = np.minimum(max_indel, band // 2)
+        band, shift = single_end_band(batch.lengths, p, self.band)
 
         mark("setup")
         with self._stats_lock:

@@ -30,13 +30,14 @@ CPU_DEVICES_ENV = "MAPPER_TPU_TORCH_CPU_DEVICES"
 
 def visible_devices(device_type: str | None = None) -> list[torch.device]:
     """The devices of `device_type` a mesh may take: every CUDA card for
-    "cuda", the default where a card is present; for "cpu", the default
-    elsewhere, N entries of the CPU, where N is MAPPER_TPU_TORCH_CPU_DEVICES
-    (default 1).  Only tests set it: it is the counterpart of the
-    `--xla_force_host_platform_device_count=8` that gives the JAX package's
-    tests a CPU mesh of several devices."""
+    "cuda" (none without a card); for "cpu", N entries of the CPU, where N
+    is MAPPER_TPU_TORCH_CPU_DEVICES (default 1).  With no type given, "cpu"
+    where that variable is set and "cuda" elsewhere: the CPU is taken only
+    when asked for.  Only tests set the variable: it is the counterpart of
+    the `--xla_force_host_platform_device_count=8` that gives the JAX
+    package's tests a CPU mesh of several devices."""
     if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        device_type = "cpu" if CPU_DEVICES_ENV in os.environ else "cuda"
     if device_type == "cuda":
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     if device_type != "cpu":
@@ -50,9 +51,14 @@ def visible_devices(device_type: str | None = None) -> list[torch.device]:
 def make_mesh(devices=None) -> tuple[torch.device, ...]:
     """The mesh over `devices` (default: `visible_devices()`), in order.  All
     entries are CPU devices or all are CUDA devices; a CUDA entry without an
-    index names the current card."""
+    index names the current card.  With no devices given and no card, it
+    raises unless MAPPER_TPU_TORCH_CPU_DEVICES asks for the CPU."""
     if devices is None:
         devices = visible_devices()
+        if not devices:
+            raise ValueError(
+                f"no CUDA device is visible: pass the devices, or set {CPU_DEVICES_ENV} for a CPU mesh"
+            )
     mesh = []
     for d in devices:
         d = torch.device(d)

@@ -24,9 +24,10 @@ from mapper_tpu_torch import Api, AlignmentParameters, basepairs
 from mapper_tpu_torch.align.query import Query
 from mapper_tpu_torch.batch import device_candidates as dc
 from mapper_tpu_torch.batch.candidates import ReadBatch, generate_candidates
-from mapper_tpu_torch.batch.engine import BatchAligner
+from mapper_tpu_torch.batch.engine import BatchAligner, single_end_band
 from mapper_tpu_torch.index import hashblock as hb
 from mapper_tpu_torch.sequence import Sequence
+import torch_candidate_workloads as wl
 
 CPU = torch.device("cpu")
 BANDED_ATOL = 1e-4
@@ -42,27 +43,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-def _random_text(rng, n):
-    return "".join(np.array(list("ACGT"))[rng.integers(0, 4, size=n)])
-
-
-def _random_reads(rng, ref_text, n, length=150, snp=0.02, rc_fraction=0.5):
-    """(name, text) reads drawn from `ref_text`, as tests/test_device_candidates.py
-    draws them."""
-    bases = np.array(list("ACGT"))
-    reads = []
-    for i in range(n):
-        pos = int(rng.integers(0, len(ref_text) - length))
-        read = np.array(list(ref_text[pos : pos + length]))
-        snps = rng.random(length) < snp
-        read[snps] = bases[rng.integers(0, 4, size=int(snps.sum()))]
-        text = "".join(read)
-        if rng.random() < rc_fraction:
-            text = basepairs.decode(basepairs.reverse_complement(basepairs.encode(text)))
-        reads.append((f"r{i}", text))
-    return reads
 
 
 # ---------------------------------------------------------------------------
@@ -113,38 +93,9 @@ def test_uint32_products_and_wraps_exact():
 # ---------------------------------------------------------------------------
 
 
-def _single_contig(rng):
-    ref = _random_text(rng, 120_000)
-    return {"chr1": ref}, _random_reads(rng, ref, 96)
-
-
-def _multi_contig(rng):
-    contigs = {f"g{i}": _random_text(rng, size) for i, size in enumerate((60_000, 30_000, 9_000))}
-    reads = []
-    for text in contigs.values():
-        reads.extend(_random_reads(rng, text, 16))
-    # mixed lengths, contig-edge reads, and a high-SNP read
-    reads.extend(_random_reads(rng, contigs["g0"], 8, length=80))
-    reads.extend(_random_reads(rng, contigs["g1"], 8, length=37, snp=0.1))
-    reads.append(("edge0", contigs["g2"][:150]))
-    reads.append(("edge1", contigs["g2"][-150:]))
-    return contigs, reads
-
-
-def _repetitive(rng):
-    unit = _random_text(rng, 500)
-    ref = unit * 60 + _random_text(rng, 20_000)
-    return {"rep": ref}, _random_reads(rng, ref, 96, snp=0.01)
-
-
-WORKLOADS = {"single_contig": (11, _single_contig), "multi_contig": (12, _multi_contig),
-             "repetitive": (13, _repetitive)}
-
-
-@pytest.fixture(scope="module", params=list(WORKLOADS))
+@pytest.fixture(scope="module", params=list(wl.WORKLOADS))
 def workload(request):
-    seed, make = WORKLOADS[request.param]
-    contigs, reads = make(np.random.default_rng(seed))
+    contigs, reads = wl.build(request.param)
     return request.param, Api.new_database(contigs), mapper_tpu.Api.new_database(contigs), reads
 
 
@@ -209,6 +160,114 @@ def test_index_arrays_cached_per_device(workload):
     np.testing.assert_array_equal(first["counts"].numpy(), merged["counts"])
 
 
+def _jax_table(jax_batch, jax_db, k_out=8):
+    """The JAX program's raw [B, 2K+1] int32 table (`_device_candidates_jit`)."""
+    out, _ = jax_dc.generate_candidates_device(jax_batch, jax_db, max_candidates_per_read=k_out, stacked=True)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("k_out", [8, 3])
+def test_candidates_plain_table_equals_jax(workload, k_out):
+    """candidates_plain's [B, 2K+1] int32 table (KC1's plain version) equals
+    the JAX program's word for word: keys, votes and fallback flags."""
+    _, index, jax_index, reads = workload
+    batch, jax_batch = _batches(reads)
+    got = dc.candidates_plain(dc.program_inputs(batch, index.hashblock_database, CPU), k_out)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _jax_table(jax_batch, jax_index.hashblock_database, k_out))
+
+
+def _pyramid_flags(inputs):
+    """Per read, from the plain program's first half: whether blocks are
+    left that the host path would keep merging after NUM_LEVELS levels, and
+    the number of seeds that pass the size filter."""
+    seeds = dc._plain_seeds(inputs)
+    return seeds["unconverged"].numpy(), seeds["seeds"].numpy()
+
+
+@pytest.fixture(scope="module")
+def fallback_case():
+    contigs, reads = wl.build("fallback_reasons")
+    index, jax_index = Api.new_database(contigs), mapper_tpu.Api.new_database(contigs)
+    batch, jax_batch = _batches(reads)
+    inputs = dc.program_inputs(batch, index.hashblock_database, CPU)
+    table = dc.candidates_plain(inputs).numpy()
+    return [n for n, _ in reads], inputs, table, _jax_table(jax_batch, jax_index.hashblock_database)
+
+
+def test_each_fallback_flag_is_set_as_in_jax(fallback_case):
+    """One read sets each of the three flags alone: blocks left unmerged
+    after NUM_LEVELS levels; more than V_SLOTS seeds; more than P_SLOTS vote
+    entries (the reads of a ten-fold repeat, which set neither other flag).
+    The table equals the JAX program's."""
+    names, inputs, table, jax_table = fallback_case
+    np.testing.assert_array_equal(table, jax_table)
+    unconverged, seeds = _pyramid_flags(inputs)
+    flagged = table[:, -1] == 1
+    u = names.index(wl.UNCONVERGED)
+    assert flagged[u] and unconverged[u] and seeds[u] <= dc.V_SLOTS
+    s = names.index(wl.SEED_OVERFLOW)
+    assert flagged[s] and not unconverged[s] and seeds[s] > dc.V_SLOTS
+    for name in wl.ENTRY_OVERFLOW:
+        e = names.index(name)
+        assert flagged[e] and not unconverged[e] and seeds[e] <= dc.V_SLOTS, name
+    clean = [i for i, n in enumerate(names) if n.startswith(("r", "per"))]
+    assert not flagged[clean].any()
+
+
+def test_top_k_ties_broken_by_key(fallback_case):
+    """Ranks of equal votes list their keys ascending, as the JAX program
+    does: the repeat's reads tie at their top votes, the periodic reads at
+    one vote."""
+    names, _, table, jax_table = fallback_case
+    np.testing.assert_array_equal(table, jax_table)
+    keys, votes = table[:, :8].astype(np.int64), table[:, 8:16]
+    ties = (votes[:, :-1] == votes[:, 1:]) & (votes[:, 1:] > 0)
+    assert (keys[:, :-1][ties] < keys[:, 1:][ties]).all()
+    for name in (*wl.ENTRY_OVERFLOW, "per0"):
+        assert ties[names.index(name), 0], name
+
+
+def test_score_budget_overflow_sets_fallback():
+    """fused_rows_plain (KC2's plain version) on 140 reads that keep 8 rows
+    each: the kept rows pass score_rows' 1,024, the reads of the rows past
+    it take the fallback flag, and the rows are the first 1,024 kept ones in
+    read-major, rank-minor order with the geometry the host replays."""
+    contigs, reads = wl.build("score_budget")
+    index = Api.new_database(contigs)
+    batch, _ = _batches(reads)
+    params = AlignmentParameters.defaults()
+    band, shift = single_end_band(batch.lengths, params, 64)
+    concat = BatchAligner(index, params, CPU)._concat_device()
+    inputs = dc.fused_inputs(batch, index.hashblock_database, concat, shift, band)
+    table = dc.candidates_plain(inputs)
+    out_table, read_id, reversed_, win_start, lane, n, m = dc.fused_rows_plain(table, inputs, band)
+    c_slots = dc.score_rows(batch.num_reads)
+    votes = table[:, 8:16].long()
+    keep = (votes > 0) & ((votes[:, :1] < 6) | (votes * 3 >= votes[:, :1]))
+    kept_read = torch.nonzero(keep)[:, 0]
+    assert len(kept_read) > c_slots == len(read_id)
+    past = torch.zeros(batch.num_reads, dtype=torch.bool)
+    past[kept_read[c_slots:]] = True
+    assert bool(past.any())
+    np.testing.assert_array_equal(out_table[:, -1].numpy(), (table[:, -1].bool() | past).int().numpy())
+    np.testing.assert_array_equal(out_table[:, :-1].numpy(), table[:, :-1].numpy())
+    np.testing.assert_array_equal(read_id.numpy(), kept_read[:c_slots].numpy())
+    assert read_id.dtype == win_start.dtype == lane.dtype == torch.int64 and reversed_.dtype == torch.bool
+    assert n.dtype == m.dtype == torch.int32
+    assert bool(((lane >= 0) & (lane < band)).all()) and bool((m >= 1).all())
+    np.testing.assert_array_equal(n.numpy(), batch.lengths[read_id.numpy()])
+
+
+def test_candidates_programs_refuse_other_devices():
+    """A device neither CPU nor CUDA raises in both dispatchers."""
+    inputs = {"codes": torch.zeros((1, 64), dtype=torch.uint8, device="meta")}
+    with pytest.raises(ValueError, match="unsupported device"):
+        dc.candidates_program(inputs)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dc.fused_rows(torch.zeros((1, 17), dtype=torch.int32, device="meta"), inputs, 64)
+
+
 # ---------------------------------------------------------------------------
 # the fused program against the JAX fused program
 # ---------------------------------------------------------------------------
@@ -220,12 +279,7 @@ def test_fused_output_matches_jax(workload):
     name, index, jax_index, reads = workload
     batch, jax_batch = _batches(reads)
     params = AlignmentParameters.defaults()
-    band = 64
-    shift = np.minimum(
-        np.maximum(0, ((batch.lengths * params.max_error_rate - params.deletion_start_penalty)
-                       / params.deletion_extension_penalty).astype(np.int64)),
-        band // 2,
-    )
+    band, shift = single_end_band(batch.lengths, params, 64)
     engine = BatchAligner(index, params, CPU)
     got = dc.fused_candidates_scores(batch, index.hashblock_database, engine._concat_device(), params, shift, band)
     jax_engine = JaxBatchAligner(jax_index, mapper_tpu.AlignmentParameters.defaults())
@@ -277,9 +331,9 @@ def _summarize(result):
 def _parity_workload():
     """tests/test_device_candidates.py's test_fused_engine_parity_cpu reads."""
     rng = np.random.default_rng(21)
-    ref = _random_text(rng, 80_000)
+    ref = wl.random_text(rng, 80_000)
     contigs = {"c1": ref[:50_000], "c2": ref[50_000:]}
-    reads = _random_reads(rng, ref[:50_000], 48) + _random_reads(rng, ref[50_000:], 24)
+    reads = wl.random_reads(rng, ref[:50_000], 48) + wl.random_reads(rng, ref[50_000:], 24)
     # an indel read and an unalignable read exercise fallback routing
     indel = list(ref[100:250])
     del indel[60:63]

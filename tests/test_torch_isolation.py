@@ -155,7 +155,9 @@ def test_probe_entry_cuda_without_card_exits_nonzero(tmp_path):
 
 def test_library_key_covers_the_shared_header(monkeypatch, tmp_path):
     """The build is keyed by every source and header: editing dp_core.cuh,
-    which both sources include, names another library."""
+    which the scorers and the probes include, or launch.cuh, which the
+    scorers and the device-candidates kernels include, names another
+    library."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for path in kernels.CSRC.iterdir():
@@ -163,10 +165,13 @@ def test_library_key_covers_the_shared_header(monkeypatch, tmp_path):
     real = kernels.library_path(tmp_path)
     monkeypatch.setattr(kernels, "CSRC", csrc)
     assert kernels.library_path(tmp_path) == real
-    assert [p.name for p in kernels.sources()] == ["banded_dp.cu", "probe_i16.cu"]
-    header = csrc / "dp_core.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    assert kernels.library_path(tmp_path) != real
+    assert [p.name for p in kernels.sources()] == ["banded_dp.cu", "candidates.cu", "probe_i16.cu"]
+    seen = {real}
+    for name in ("dp_core.cuh", "launch.cuh"):
+        header = csrc / name
+        header.write_text(header.read_text() + "\n// edited\n")
+        assert kernels.library_path(tmp_path) not in seen
+        seen.add(kernels.library_path(tmp_path))
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -1,16 +1,24 @@
-"""`align/kernels.py` against the CUDA source it binds, on the CPU: the
+"""`align/kernels.py` against the CUDA sources it binds, on the CPU: the
 constants it mirrors, the bands whose launches take a warp kernel, the
 dynamic shared memory each wrapper checks against the sum its launcher in
-`csrc/banded_dp.cu` passes, and the widths that limit admits.  Reads the
-source as text; needs no card."""
+`csrc/banded_dp.cu` or `csrc/candidates.cu` passes, and the widths that
+limit admits; the device-candidates program's budgets that
+`csrc/candidates.cu` shares with `batch/device_candidates.py`; and the
+rule that a wrapper given a CPU tensor raises.  Reads the sources as text;
+needs no card."""
 
 import re
 
 import pytest
+import torch
 
 from mapper_tpu_torch.align import kernels
+from mapper_tpu_torch.batch import device_candidates as dc
+from mapper_tpu_torch.index import hashblock
 
-SOURCE = (kernels.CSRC / "banded_dp.cu").read_text()
+# the scorers' source and the launch header it includes
+SOURCE = (kernels.CSRC / "banded_dp.cu").read_text() + (kernels.CSRC / "launch.cuh").read_text()
+CANDIDATES = (kernels.CSRC / "candidates.cu").read_text()
 
 # each warp kernel's lanes a thread template argument, and the band it gives
 WARP_KERNELS = {
@@ -167,3 +175,103 @@ def test_no_width_accepted_before_is_refused(name, band):
                     if kernels.smem_bytes(name, lq, band) > kernels._SMEM_LIMIT)
     with pytest.raises(ValueError, match="too large"):
         kernels._check_smem(kernels.smem_bytes(name, too_wide, band), too_wide)
+
+
+# ---- csrc/candidates.cu: KC1 and KC2 ----------------------------------------
+
+
+def _candidates_constant(name):
+    m = re.search(rf"constexpr (?:int|int64_t|uint32_t|size_t) {name} =\s*([^;]+);", CANDIDATES)
+    assert m, name
+    expr = " ".join(m.group(1).split()).replace("7654337u", "7654337").replace("242828353u", "242828353")
+    for const in set(re.findall(r"\bk[A-Z]\w*", expr)):
+        expr = re.sub(rf"\b{const}\b", str(_candidates_constant(const)), expr)
+    return eval(expr, {})
+
+
+@pytest.mark.parametrize("name,want", [
+    ("kNumLevels", dc.NUM_LEVELS), ("kVSlots", dc.V_SLOTS), ("kPSlots", dc.P_SLOTS),
+    ("kMaxMatches", dc.MAX_MATCHES_PER_SEED), ("kNoKey", dc._NO_KEY),
+    ("kMergeMultiplier", hashblock.MERGE_MULTIPLIER),
+    ("kMergeLengthMultiplier", hashblock.MERGE_LENGTH_MULTIPLIER),
+    ("kGapmerMultiplier", hashblock.GAPMER_MULTIPLIER),
+    ("kGapmerInverse", hashblock._GAPMER_MULTIPLIER_INVERSE),
+    ("kFixedSmem", kernels._CANDIDATES_FIXED_SMEM),
+])
+def test_candidates_constants_match_the_module(name, want):
+    """The budgets, the empty rank's key and the hash multipliers KC1 uses
+    are the Python module's; its fixed shared memory is the wrapper's."""
+    assert _candidates_constant(name) == want
+
+
+def _c_function(name):
+    """A one-expression size_t function of candidates.cu as Python."""
+    m = re.search(rf"size_t {name}\(([^)]*)\) \{{\s*return (.*?);\s*\}}", CANDIDATES, re.S)
+    assert m, name
+    args = ", ".join(p.split()[-1] for p in m.group(1).split(",") if p.strip())
+    expr = " ".join(m.group(2).split())
+    expr = re.sub(r"static_cast<\w+>", "", expr).replace("/ 16 * 16", "// 16 * 16")
+    expr = re.sub(r"(\w+) \? (\w+) : (\w+\(\w+\))", r"(\2 if \1 else \3)", expr)
+    for const in set(re.findall(r"\bk[A-Z]\w*", expr)):
+        expr = re.sub(rf"\b{const}\b", str(_candidates_constant(const)), expr)
+    return expr, args
+
+
+@pytest.mark.parametrize("width", [64, 192, 448, 1024, 2048, 4992, 5056, 6016, 65536])
+def test_candidates_smem_matches_the_launcher(width):
+    """kernels.smem_bytes("candidates", W) is the sum mapper_candidates
+    passes, with the row in shared memory exactly where it fits beside the
+    fixed part (candidates_in_scratch), and the scratch slice the wrapper
+    allocates a block is row_bytes."""
+    row_expr, row_args = _c_function("row_bytes")
+    row_bytes = eval(f"lambda {row_args}: {row_expr}", {})
+    smem_expr, smem_args = _c_function("candidates_smem")
+    smem = eval(f"lambda {smem_args}: {smem_expr}", {"row_bytes": row_bytes})
+    launcher = CANDIDATES[CANDIDATES.index('extern "C" int mapper_candidates('):]
+    assert "candidates_smem(width, in_scratch)" in launcher
+    scratch = kernels.candidates_in_scratch(width)
+    assert kernels.candidates_row_bytes(width) == row_bytes(width)
+    assert kernels.smem_bytes("candidates", width) == smem(width, scratch)
+    assert scratch == (smem(width, False) > kernels._SMEM_LIMIT)
+    kernels._check_smem(kernels.smem_bytes("candidates", width), width)
+    rows_expr, _ = _c_function("rows_smem")
+    assert kernels.smem_bytes("fused_rows", width) == eval(rows_expr, {})
+
+
+def test_candidates_threshold_is_between_1000_and_5000_bp():
+    """A 1,000 bp read's row (width 1,024) stays in shared memory; a
+    5,000 bp read's (width 5,056) takes the scratch buffer."""
+    assert not kernels.candidates_in_scratch(1024)
+    assert kernels.candidates_in_scratch(5056)
+
+
+def _cpu_calls():
+    t = torch.zeros
+    u8 = t((2, 64), dtype=torch.uint8)
+    i64, i32 = t(2, dtype=torch.int64), t(2, dtype=torch.int32)
+    index = {**{k: t(2, dtype=torch.int64) for k in kernels._INDEX_INT64},
+             **{k: t(2, dtype=torch.int32) for k in kernels._INDEX_INT32}}
+    gathered = (u8, t(256, dtype=torch.uint8), i64, t(2, dtype=torch.bool), i64, i64, i32, i32)
+    rows = (u8, t((2, 128), dtype=torch.uint8), i32, i32)
+    return {
+        "candidates": lambda: kernels.candidates(u8, i64, index, 40, 5, 2, 1000, 100, 8),
+        "fused_rows": lambda: kernels.fused_rows(t((2, 17), dtype=torch.int32), i64, i64, i64, i64, 2, 1000,
+                                                 100, 1024, 64, 8),
+        "banded_i16": lambda: kernels.banded_i16(*gathered, (1,) * 6, 1.0, 64),
+        "banded_f32": lambda: kernels.banded_f32(*gathered, (1.0,) * 6, 64),
+        "banded_i16_packed": lambda: kernels.banded_i16_packed(*rows, (1,) * 6, 1.0),
+        "banded_roll_f32": lambda: kernels.banded_roll_f32(*rows, (1.0,) * 6, 64),
+        "banded_chunk_f32": lambda: kernels.banded_chunk_f32(*rows, (1.0,) * 6, 64, 32),
+        "probe_i16": lambda: kernels.probe_i16("a", 0, t((2, 64), dtype=torch.int16), False),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_cpu_calls()))
+def test_cuda_wrappers_refuse_cpu_tensors(name):
+    """A CUDA wrapper given CPU tensors raises before it builds or launches
+    anything (the plain versions take CPU tensors one level up), and counts
+    no launch."""
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _cpu_calls()[name]()
+    assert kernels.LAUNCHES == before

@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card, and the device pileup on the card against the same on the CPU.
+card (the scorers, the probes, and the device-candidates kernels KC1 and KC2
+on `tests/torch_candidate_workloads.py`'s workloads, 1,000 bp reads and a
+5,000 bp read), and the device pileup on the card against the same on the CPU.
 Skipped without one.  Imports neither JAX nor the JAX package, so it also
 runs where JAX is not installed:
 
@@ -14,13 +16,17 @@ import torch
 
 from benchmarks.simlib import random_reference
 from mapper_tpu_torch.align import banded, kernels
+from mapper_tpu_torch import Api
 from mapper_tpu_torch.align.params import AlignmentParameters
+from mapper_tpu_torch.batch import device_candidates as dc
 from mapper_tpu_torch.batch.candidates import ReadBatch
+from mapper_tpu_torch.batch.engine import single_end_band, upload_reference
 from mapper_tpu_torch.batch.device_pileup import DevicePileup
 from mapper_tpu_torch.pileup import MatchDatabase
 from mapper_tpu_torch.probe_i16 import probes
 from mapper_tpu_torch.sequence import Sequence, SequenceDatabase, sort_and_complement
 from mapper_tpu_torch.simulate import scoring_candidates
+import torch_candidate_workloads as wl
 
 pytestmark = pytest.mark.cuda
 
@@ -499,3 +505,56 @@ def test_mesh_pileup_and_sharded_index_on_one_card(cuda):
     want = ShardedIndex(db, (torch.device("cpu"),) * 2).lookup(num_bp, key)
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(g, w_)
+
+
+# ---- the device-candidates kernels (csrc/candidates.cu) --------------------
+
+
+def _long_reads(length, count, seed):
+    rng = np.random.default_rng(seed)
+    ref = wl.random_text(rng, 60_000)
+    return {"chr1": ref}, wl.random_reads(rng, ref, count, length=length) + wl.random_reads(rng, ref, 2)
+
+
+CARD_WORKLOADS = {
+    **{name: lambda name=name: wl.build(name) for name in wl.WORKLOADS},
+    "reads_1000bp": lambda: _long_reads(1000, 8, 21),
+    # its row takes the scratch buffer
+    "read_5000bp": lambda: _long_reads(5000, 1, 22),
+}
+
+
+def _fused_inputs(contigs, reads, device):
+    """fused_inputs on `device`, with the engine's band and half-windows."""
+    db = Api.new_database(contigs).hashblock_database
+    batch = ReadBatch.from_sequences([Sequence.from_text(n, t) for n, t in reads])
+    params = AlignmentParameters.defaults()
+    band, shift = single_end_band(batch.lengths, params)
+    concat = upload_reference(db.get_sequence_database().concatenated_codes(), device)
+    return dc.fused_inputs(batch, db, concat, shift, band), params, band
+
+
+@pytest.mark.parametrize("name", sorted(CARD_WORKLOADS))
+def test_candidates_kernels_equal_plain(cuda, name):
+    """KC1's table equals candidates_plain's on the card and on the CPU, and
+    KC2's rows equal fused_rows_plain's on the same table (torch.equal, the
+    same dtypes); one launch each.  The fused program on the card equals its
+    CPU run word for word."""
+    contigs, reads = CARD_WORKLOADS[name]()
+    inputs, params, band = _fused_inputs(contigs, reads, cuda)
+    cpu_inputs, _, _ = _fused_inputs(contigs, reads, torch.device("cpu"))
+    width = inputs["codes"].shape[1]
+    assert kernels.candidates_in_scratch(width) == (name == "read_5000bp")
+    before = dict(kernels.LAUNCHES)
+    table = dc.candidates_program(inputs)
+    rows = dc.fused_rows(table.clone(), inputs, band)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["candidates"] == before["candidates"] + 1
+    assert kernels.LAUNCHES["fused_rows"] == before["fused_rows"] + 1
+    assert torch.equal(table, dc.candidates_plain(inputs))
+    assert torch.equal(table.cpu(), dc.candidates_plain(cpu_inputs))
+    for got, want in zip(rows, dc.fused_rows_plain(table, inputs, band)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    got = dc.fused_program(inputs, params, band)
+    assert torch.equal(got.cpu(), dc.fused_program(cpu_inputs, params, band))
+

@@ -101,6 +101,22 @@ def test_make_mesh_checks_its_devices(monkeypatch):
     assert mesh_lib.visible_devices("cpu") == [CPU]
 
 
+def test_make_mesh_takes_no_cpu_unasked(monkeypatch):
+    """Without a card, the default mesh raises unless
+    MAPPER_TPU_TORCH_CPU_DEVICES asks for the CPU; "cpu" passed or the
+    variable set give CPU entries; the default type is "cuda"."""
+    monkeypatch.delenv(mesh_lib.CPU_DEVICES_ENV, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    assert mesh_lib.visible_devices() == []
+    with pytest.raises(ValueError, match="no CUDA device is visible"):
+        mesh_lib.make_mesh()
+    assert mesh_lib.make_mesh(["cpu"]) == (CPU,)
+    assert mesh_lib.visible_devices("cpu") == [CPU]
+    monkeypatch.setenv(mesh_lib.CPU_DEVICES_ENV, "2")
+    assert mesh_lib.make_mesh() == (CPU, CPU)
+
+
 def test_reduce_pileup_sums_in_mesh_order():
     rng = np.random.default_rng(4)
     counts = [torch.from_numpy(rng.integers(0, 40, size=(2, 30)).astype(np.float32) / 2) for _ in range(4)]
