@@ -3,11 +3,20 @@ which kernels compile to the same SASS, and the times of the kernels both
 builds share, in turns (A B B A), each build's output held equal to the
 plain version first.
 
-    python3 experiments/csrc_ab.py A_CSRC B_CSRC
+    python3 experiments/csrc_ab.py [--candidates-only] A_CSRC B_CSRC
 
 A_CSRC and B_CSRC are source directories laid out as `csrc/` (for example
 the parent commit's, unpacked with `git archive` into a directory that
-.gitignore lists).  Timed (CUDA events, 20 calls): banded_i16 (K1) at
+.gitignore lists).  First the device-candidates kernels: each tree's KC1
+and KC2 registers, spills and stack (`experiments/ptxas_report.py`), and on
+`chip_smoke.py`'s phase 7 chunks (150 bp, 1,000 bp, the paired mates, one
+5,000 bp read; `experiments/dc_chunks.py`) each tree's KC1 and KC2 output
+held equal to the plain version (torch.equal), then both timed in turns (A
+B B A, CUDA-graph replay of 20 calls a reading, so that the host's pace of
+issuing calls is not in the time; KC2 on the plain table, its status words
+zeroed in each call where the tree takes them) with B's shared
+memory a block, and each tree's SASS instruction mix of both kernels.
+`--candidates-only` stops there.  Timed (CUDA events, 20 calls): banded_i16 (K1) at
 [16384, 192], bands 32, 64 and 128; banded_i16_packed (K3) on those
 candidates' band-64 rows; banded_f32 (K2) at 4,096 x 1024, bands 32, 64 and
 128; banded_roll_f32 (K5) and banded_chunk_f32 (K4, chunk 128) on those
@@ -30,9 +39,61 @@ from mapper_tpu_torch.simulate import scoring_candidates
 import chip_smoke as cs
 from experiments import sass_loops
 
-dirs = {"A": Path(sys.argv[1]).resolve(), "B": Path(sys.argv[2]).resolve()}
+args = [a for a in sys.argv[1:] if a != "--candidates-only"]
+dirs = {"A": Path(args[0]).resolve(), "B": Path(args[1]).resolve()}
 libs = {key: kernels.library(build_dir=kernels.BUILD_DIR / f"ab_{key}", csrc=d) for key, d in dirs.items()}
 print(cs.gpu_line())
+
+
+def candidates_ab() -> None:
+    """KC1 and KC2 of both trees on phase 7's chunks: equal to the plain
+    versions, then timed in turns."""
+    import tempfile
+
+    from experiments import dc_chunks
+    from experiments.ptxas_report import report
+    from mapper_tpu_torch.batch import device_candidates as dc
+
+    for key, d in dirs.items():
+        for line in report(d, "", ("candidates.cu",)):
+            print(f"{key} ptxas {line}", flush=True)
+        for name, part in sass_loops.functions(libs[key]._name).items():
+            if "candidates_kernel" in name or "fused_rows_kernel" in name:
+                mix = sass_loops.instruction_mix(part)
+                print(f"{key} SASS {name}: {sass_loops.mix_line(mix)[:400]}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="ab_chunks_") as tmp:
+        for tag, (inputs, band) in dc_chunks.phase7_chunks(Path(tmp)).items():
+            want = dc.candidates_plain(inputs)
+            plain_rows = dc.fused_rows_plain(want, inputs, band)
+            calls = {"candidates": {}, "fused_rows": {}}
+            for key, lib in libs.items():
+                kc1, out = dc_chunks.kc1_call(lib, inputs)
+                table = want.clone()
+                kc2, rows = dc_chunks.kc2_call(lib, dirs[key], table, inputs, band)
+                if kc1() != 0 or kc2() != 0:
+                    raise RuntimeError(f"{key}: launch failed on {tag}")
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise AssertionError(f"{key} KC1 != plain on {tag}: {int((out != want).any(dim=1).sum())} reads")
+                for got, ref in zip((table, *rows), plain_rows):
+                    if got.dtype != ref.dtype or not torch.equal(got, ref):
+                        raise AssertionError(f"{key} KC2 != plain on {tag}")
+                calls["candidates"][key], calls["fused_rows"][key] = kc1, kc2
+            width = int(inputs["codes"].shape[1])
+            smem = {"candidates": kernels.smem_bytes("candidates", width), "fused_rows": kernels.smem_bytes("fused_rows", width)}
+            for name, fns in calls.items():
+                times = {"A": [], "B": []}
+                for key in ("A", "B", "B", "A"):
+                    times[key].append(cs.graph_ms(fns[key], 20))
+                a, b = np.mean(times["A"]), np.mean(times["B"])
+                print(f"[dc] {tag} {name}: equal to plain in both; A {a:.4f} ms ({', '.join(f'{t:.4f}' for t in times['A'])}), "
+                      f"B {b:.4f} ms ({', '.join(f'{t:.4f}' for t in times['B'])}), B/A {b / a:.3f}; "
+                      f"B shared memory {smem[name]} bytes a block", flush=True)
+
+
+candidates_ab()
+if "--candidates-only" in sys.argv:
+    sys.exit(0)
 
 # SASS, function by function
 raw = {key: sass_loops.functions(lib._name) for key, lib in libs.items()}

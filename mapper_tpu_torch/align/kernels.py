@@ -19,8 +19,9 @@ Four kinds of entry:
   [rows, lanes] block, lanes 64, 128 or 256;
 - `candidates` (KC1) and `fused_rows` (KC2) run the device-candidates
   program of `batch/device_candidates.py`: the per-read top-K vote table
-  from the read codes and the merged index, one block a read, and the
-  scoring rows of the table's kept entries, one block a chunk.
+  from the read codes and the merged index, a team of threads a read, and
+  the scoring rows of the table's kept entries, one thread a read over
+  many blocks.
 `banded_i16`, `banded_f32`, `banded_roll_f32` and `banded_chunk_f32` run one
 warp a candidate at the bands of `WARP_BANDS`, one block a candidate
 elsewhere; `banded_i16_packed` (band 64 only) runs one warp a pair of
@@ -82,13 +83,29 @@ PROBE_LANES = (64, 128, 256)  # the lane counts the probe kernel takes
 # dynamic shared memory a block may take on sm_90 (kSmemOptIn): a launch above
 # the 48 KB default opts in first
 _SMEM_LIMIT = 232448
-# candidates_kernel's (KC1) fixed shared memory (kFixedSmem): the vote keys
-# and counts, the seed list, the reduction slots
-_CANDIDATES_FIXED_SMEM = 1024 * 8 + 32 * 8 + 1024 * 4 + 2 * 32 * 4 + 512 * 4 * 4 + 512
+# candidates_kernel's (KC1) teams: a read's threads.  Rows up to
+# _NARROW_WIDTH take _NARROW_WARPS warps, _NARROW_READS reads a block;
+# wider rows one block of _WIDE_WARPS warps (kNarrowWidth, kNarrowWarps,
+# kNarrowReads, kWideWarps)
+_NARROW_WIDTH = 256
+_NARROW_WARPS = 2
+_NARROW_READS = 2
+_WIDE_WARPS = 8
+# a team's fixed shared memory (kTeamFixedSmem): the exchange slots, the
+# seed list; then one region for the row or, after the levels, the vote
+# table of 2 x P_SLOTS int32 keys and 16-bit counts (kHashBytes)
+_CANDIDATES_FIXED_SMEM = 2 * 8 * 8 + 512 * 4 * 4
+_CANDIDATES_HASH_BYTES = 2048 * 4 + 2048 * 2
+# a team that would take more than this keeps its row in the scratch
+# buffer, so that two reads stay resident on a multiprocessor (kRowSmemLimit)
+_CANDIDATES_ROW_LIMIT = 232448 // 2
 # resident blocks a multiprocessor a launch with the row in its scratch
 # buffer takes: its grid, and the buffer's slices
 _SCRATCH_BLOCKS_PER_SM = 4
-_FUSED_ROWS_SMEM = 32 * 4  # fused_rows_kernel's scan slots (rows_smem)
+# fused_rows_kernel (KC2): reads a block, one a thread (kRowsTile), and the
+# most ranks whose table rows it stages in shared memory (kStagedRanks)
+_ROWS_TILE = 128
+_STAGED_RANKS = 32
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -110,7 +127,7 @@ _SIGNATURES = {
     "mapper_candidates": [_P, _I64, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _I64] + [_I64] * 5 + [_INT, _P, _P, _I64, _P],
     "mapper_fused_rows": [_P, _I64, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT]
-                         + [_P] * 6 + [_P],
+                         + [_P] * 6 + [_P, _P],
 }
 
 
@@ -250,29 +267,55 @@ def _warp_smem(width: int, band: int, entry: int) -> int:
 
 def candidates_row_bytes(width: int) -> int:
     """The bytes of one read's row in candidates_kernel (`row_bytes`): two
-    lists of `width` 17-byte blocks and two prefix tables of width + 1
-    4-byte sums, rounded up to 16 bytes."""
-    return (2 * width * 17 + 2 * (width + 1) * 4 + 15) // 16 * 16
+    lists of `width` 17-byte blocks, two prefix tables of width + 1 4-byte
+    sums and their two power tables, rounded up to 16 bytes."""
+    return (2 * width * 17 + 4 * (width + 1) * 4 + 15) // 16 * 16
+
+
+def _candidates_team_smem(width: int, scratch: bool) -> int:
+    """A KC1 team's shared memory (`team_smem`): the fixed part and the
+    larger of the row (unless it lives in the scratch buffer) and the vote
+    table, which share one region."""
+    row = 0 if scratch else candidates_row_bytes(width)
+    return _CANDIDATES_FIXED_SMEM + max(row, _CANDIDATES_HASH_BYTES)
 
 
 def candidates_in_scratch(width: int) -> bool:
     """Whether candidates_kernel keeps a read's row in a scratch buffer:
-    where the row and the fixed part do not fit the shared memory."""
-    return _CANDIDATES_FIXED_SMEM + candidates_row_bytes(width) > _SMEM_LIMIT
+    where its team's shared memory with the row would leave room for fewer
+    than two reads on a multiprocessor (a 5,000 bp read's; a 1,000 bp
+    read's stays on chip)."""
+    return _candidates_team_smem(width, False) > _CANDIDATES_ROW_LIMIT
 
 
-def smem_bytes(name: str, lq: int, band: int = 0, chunk: int | None = None) -> int:
+def candidates_team(width: int) -> tuple[int, int]:
+    """(warps a read, reads a block) of a candidates launch at row width
+    `width`."""
+    if width <= _NARROW_WIDTH and not candidates_in_scratch(width):
+        return _NARROW_WARPS, _NARROW_READS
+    return _WIDE_WARPS, 1
+
+
+def fused_rows_status_words(num_reads: int) -> int:
+    """The int64 status words a fused_rows launch takes: the tile ticket
+    and one a tile of `_ROWS_TILE` reads."""
+    return 1 + -(-num_reads // _ROWS_TILE)
+
+
+def smem_bytes(name: str, lq: int, band: int = 0, chunk: int | None = None, k_out: int = 8) -> int:
     """The dynamic shared memory a launch of kernel `name` takes at read
     width `lq` (and `chunk`, for banded_chunk_f32): the sum its launcher in
     `banded_dp.cu` or `candidates.cu` passes.  banded_chunk_f32's warp
     kernel stages min(chunk, lq) positions at a time: a chunk wider than the
     rows is one chunk either way; banded_roll_f32's stages the whole row.
-    `candidates` takes the row's bytes where it fits (`candidates_smem`),
-    `fused_rows` its scan slots; neither takes a band."""
+    `candidates` takes its block's teams' (`candidates_smem`), `fused_rows`
+    its tile of the table at `k_out` ranks, staged up to `_STAGED_RANKS`
+    (`rows_smem`); neither takes a band."""
     if name == "candidates":
-        return _CANDIDATES_FIXED_SMEM + (0 if candidates_in_scratch(lq) else candidates_row_bytes(lq))
+        scratch = candidates_in_scratch(lq)
+        return candidates_team(lq)[1] * _candidates_team_smem(lq, scratch)
     if name == "fused_rows":
-        return _FUSED_ROWS_SMEM
+        return 16 + _ROWS_TILE // 32 * 4 + (_ROWS_TILE * (2 * k_out + 1) * 4 if k_out <= _STAGED_RANKS else 0)
     if name == "banded_i16_packed":  # pair_smem: two rows a warp, their codes a byte
         return _PEN_TABLE * _PEN_ENTRY_BYTES[name] + _PAIRS_PER_BLOCK * (2 * lq + PACKED_BAND)
     warp = band in WARP_BANDS
@@ -510,8 +553,11 @@ def candidates(codes, lengths, index: dict, max_size: int, min_size: int, n_seqs
     the row width) and lengths [B] int64, against the merged index tensors
     of `device_candidates.device_index_arrays`.  Returns [B, 2K+1] int32:
     per read the top-K vote keys (`_NO_KEY` where a rank is empty), their
-    votes and the fallback flag.  One block a read; a row too wide for the
-    shared memory (`candidates_in_scratch`) lives in a scratch buffer of
+    votes and the fallback flag.  A team of threads a read
+    (`candidates_team`): two warps, two reads a block, at widths up to
+    `_NARROW_WIDTH`, a block of 256 threads above; a row that would leave
+    room for fewer than two reads on a multiprocessor
+    (`candidates_in_scratch`) lives in a scratch buffer of
     `_SCRATCH_BLOCKS_PER_SM` slices a multiprocessor, the blocks walking the
     reads."""
     device = _cuda_device(codes)
@@ -532,28 +578,44 @@ def candidates(codes, lengths, index: dict, max_size: int, min_size: int, n_seqs
     out = torch.empty((b, 2 * k_out + 1), dtype=torch.int32, device=device)
     if b == 0:
         return out
-    grid, scratch = b, None
-    if candidates_in_scratch(width):
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        grid = min(b, _SCRATCH_BLOCKS_PER_SM * sms)
-        scratch = torch.empty(grid * candidates_row_bytes(width), dtype=torch.uint8, device=device)
+    grid, scratch = candidates_grid(width, b, device)
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = lib.mapper_candidates(
-            codes.data_ptr(), width, lengths.data_ptr(), b,
-            index["capacities"].data_ptr(), index["caps"].data_ptr(), index["bases"].data_ptr(),
-            index["capacities"].shape[0], index["counts"].data_ptr(), index["offsets"].data_ptr(),
-            index["values"].data_ptr(), index["rev_flags"].data_ptr(), index["fwd_index"].data_ptr(),
-            index["seq_lengths"].data_ptr(), index["rc_index"].data_ptr(), index["seq_starts"].data_ptr(),
-            index["seq_starts_tail"].data_ptr(), index["seq_starts_tail"].shape[0],
-            int(max_size), int(min_size), int(n_seqs), int(span), int(bias), int(k_out),
-            out.data_ptr(), _ptr(scratch), grid, stream,
-        )
+        err = lib.mapper_candidates(*_candidates_args(
+            codes, lengths, index, max_size, min_size, n_seqs, span, bias, k_out, out, scratch, grid, stream))
     if err != 0:
         raise RuntimeError(f"candidates launch failed: CUDA error {err}")
     _count("candidates")
     return out
+
+
+def candidates_grid(width: int, num_reads: int, device):
+    """(grid, scratch) of a candidates launch: where the row takes the
+    scratch buffer (`candidates_in_scratch`), `_SCRATCH_BLOCKS_PER_SM`
+    resident blocks a multiprocessor and a buffer of one row slice each;
+    elsewhere the read count and no buffer (the launcher sizes its own
+    grid)."""
+    if not candidates_in_scratch(width):
+        return num_reads, None
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    grid = min(num_reads, _SCRATCH_BLOCKS_PER_SM * sms)
+    return grid, torch.empty(grid * candidates_row_bytes(width), dtype=torch.uint8, device=device)
+
+
+def _candidates_args(codes, lengths, index, max_size, min_size, n_seqs, span, bias, k_out, out, scratch,
+                     grid, stream) -> list:
+    """mapper_candidates' arguments, in the order of `_SIGNATURES`."""
+    return [
+        codes.data_ptr(), codes.shape[1], lengths.data_ptr(), codes.shape[0],
+        index["capacities"].data_ptr(), index["caps"].data_ptr(), index["bases"].data_ptr(),
+        index["capacities"].shape[0], index["counts"].data_ptr(), index["offsets"].data_ptr(),
+        index["values"].data_ptr(), index["rev_flags"].data_ptr(), index["fwd_index"].data_ptr(),
+        index["seq_lengths"].data_ptr(), index["rc_index"].data_ptr(), index["seq_starts"].data_ptr(),
+        index["seq_starts_tail"].data_ptr(), index["seq_starts_tail"].shape[0],
+        int(max_size), int(min_size), int(n_seqs), int(span), int(bias), int(k_out),
+        out.data_ptr(), _ptr(scratch), grid, stream,
+    ]
 
 
 def fused_rows(table, lengths, shift, seq_lengths, seq_starts, n_seqs: int, span: int, bias: int,
@@ -563,7 +625,9 @@ def fused_rows(table, lengths, shift, seq_lengths, seq_starts, n_seqs: int, span
     (table, read_id int64, reversed_ bool, win_start int64, lane int64 in
     [0, band), n int32, m int32): `banded_scores_gathered`'s vectors.  A kept
     entry past the budget sets its read's fallback flag in `table`, in
-    place (the table is returned).  One block for the whole table."""
+    place (the table is returned).  One thread a read, `_ROWS_TILE` reads a
+    block, each block's base from a look-back over the earlier tiles'
+    status words (`fused_rows_status_words`, allocated zeroed here)."""
     device = _cuda_device(table)
     _check("table", table, torch.int32, 2, device)
     for name, t in (("lengths", lengths), ("shift", shift), ("seq_lengths", seq_lengths),
@@ -590,13 +654,15 @@ def fused_rows(table, lengths, shift, seq_lengths, seq_starts, n_seqs: int, span
     # the padding rows take read 0's and contig 0's geometry
     if b == 0 or seq_lengths.shape[0] == 0:
         raise ValueError("empty table or reference")
+    # the tiles' look-back status words, zeroed on the stream before the launch
+    status = torch.zeros(fused_rows_status_words(b), dtype=torch.int64, device=device)
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = lib.mapper_fused_rows(
             table.data_ptr(), b, int(k_out), lengths.data_ptr(), shift.data_ptr(),
             seq_lengths.data_ptr(), seq_starts.data_ptr(), int(n_seqs), int(span), int(bias),
-            int(c_slots), int(band), *(t.data_ptr() for t in rows), stream,
+            int(c_slots), int(band), *(t.data_ptr() for t in rows), status.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_rows launch failed: CUDA error {err}")

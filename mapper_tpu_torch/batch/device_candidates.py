@@ -23,8 +23,9 @@ The fused program scores the kept rows with `banded_scores_gathered`.
 Each program has a plain version here (`candidates_plain`, and
 `fused_rows_plain` for the kept rows' compaction and geometry) and a
 hand-written CUDA kernel (`align/csrc/candidates.cu`: KC1
-`candidates_kernel`, one block a read, and KC2 `fused_rows_kernel`, one
-block a chunk).  `candidates_program`, `fused_rows` and `fused_program`
+`candidates_kernel`, a team of threads a read, its votes counted in a
+table without a sort, and KC2 `fused_rows_kernel`, one thread a read over
+many blocks).  `candidates_program`, `fused_rows` and `fused_program`
 take the plain versions on a CPU tensor and launch the kernels on a CUDA
 tensor; any other device raises.
 """

@@ -179,11 +179,15 @@ def test_no_width_accepted_before_is_refused(name, band):
 
 # ---- csrc/candidates.cu: KC1 and KC2 ----------------------------------------
 
+# candidates.cu's constants, with the launch header's shared-memory limit
+CANDIDATES_CONSTANTS = CANDIDATES + (kernels.CSRC / "launch.cuh").read_text()
+
 
 def _candidates_constant(name):
-    m = re.search(rf"constexpr (?:int|int64_t|uint32_t|size_t) {name} =\s*([^;]+);", CANDIDATES)
+    m = re.search(rf"constexpr (?:int|int64_t|uint32_t|size_t) {name} =\s*([^;]+);", CANDIDATES_CONSTANTS)
     assert m, name
     expr = " ".join(m.group(1).split()).replace("7654337u", "7654337").replace("242828353u", "242828353")
+    expr = expr.replace(" / ", " // ")
     for const in set(re.findall(r"\bk[A-Z]\w*", expr)):
         expr = re.sub(rf"\b{const}\b", str(_candidates_constant(const)), expr)
     return eval(expr, {})
@@ -196,46 +200,117 @@ def _candidates_constant(name):
     ("kMergeLengthMultiplier", hashblock.MERGE_LENGTH_MULTIPLIER),
     ("kGapmerMultiplier", hashblock.GAPMER_MULTIPLIER),
     ("kGapmerInverse", hashblock._GAPMER_MULTIPLIER_INVERSE),
-    ("kFixedSmem", kernels._CANDIDATES_FIXED_SMEM),
+    ("kTeamFixedSmem", kernels._CANDIDATES_FIXED_SMEM),
+    ("kHashBytes", kernels._CANDIDATES_HASH_BYTES), ("kHashSlots", 2 * dc.P_SLOTS),
+    ("kRowSmemLimit", kernels._CANDIDATES_ROW_LIMIT), ("kNarrowWidth", kernels._NARROW_WIDTH),
+    ("kNarrowWarps", kernels._NARROW_WARPS), ("kNarrowReads", kernels._NARROW_READS),
+    ("kWideWarps", kernels._WIDE_WARPS), ("kRowsTile", kernels._ROWS_TILE),
+    ("kStagedRanks", kernels._STAGED_RANKS),
 ])
 def test_candidates_constants_match_the_module(name, want):
     """The budgets, the empty rank's key and the hash multipliers KC1 uses
-    are the Python module's; its fixed shared memory is the wrapper's."""
+    are the Python module's; its team sizes, its fixed shared memory, its
+    vote table (2 x P_SLOTS slots) and the team size past which the row
+    takes the scratch buffer, and KC2's tile and staged ranks, are the
+    wrapper's."""
     assert _candidates_constant(name) == want
 
 
+def _ternaries(expr):
+    """Each `(c ? a : b)` of a C expression, innermost first, as Python."""
+    while "?" in expr:
+        q = expr.index("?")
+        depth, start = 0, -1  # the group's opening parenthesis, or the expression's start
+        for i in range(q - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(expr[i], 0)
+            if depth < 0:
+                start = i
+                break
+        depth, colon, end = 0, None, len(expr)
+        for i in range(q + 1, len(expr)):
+            depth += {"(": 1, ")": -1}.get(expr[i], 0)
+            if depth == 0 and expr[i] == ":" and colon is None:
+                colon = i
+            if depth < 0:
+                end = i
+                break
+        assert colon is not None, expr
+        cond, a, b = expr[start + 1 : q], expr[q + 1 : colon], expr[colon + 1 : end]
+        expr = f"{expr[:max(start, 0)]}(({a}) if ({cond}) else ({b})){expr[end + 1:]}"
+    return expr
+
+
 def _c_function(name):
-    """A one-expression size_t function of candidates.cu as Python."""
-    m = re.search(rf"size_t {name}\(([^)]*)\) \{{\s*return (.*?);\s*\}}", CANDIDATES, re.S)
+    """A one-expression size_t or bool function of candidates.cu as Python:
+    (expression, parameter names)."""
+    m = re.search(rf"(?:size_t|bool) {name}\(([^)]*)\) \{{\s*return (.*?);\s*\}}", CANDIDATES, re.S)
     assert m, name
     args = ", ".join(p.split()[-1] for p in m.group(1).split(",") if p.strip())
     expr = " ".join(m.group(2).split())
     expr = re.sub(r"static_cast<\w+>", "", expr).replace("/ 16 * 16", "// 16 * 16")
-    expr = re.sub(r"(\w+) \? (\w+) : (\w+\(\w+\))", r"(\2 if \1 else \3)", expr)
+    expr = expr.replace("&&", " and ").replace("||", " or ")
+    expr = re.sub(r"!(?!=)", " not ", expr)
+    expr = _ternaries(expr)
     for const in set(re.findall(r"\bk[A-Z]\w*", expr)):
         expr = re.sub(rf"\b{const}\b", str(_candidates_constant(const)), expr)
     return expr, args
 
 
+def _c_functions():
+    """candidates.cu's shared-memory sums and its narrow-team test as Python
+    functions, each calling the others as the source does."""
+    env = {}
+    for name in ("row_bytes", "team_smem", "narrow", "candidates_smem", "rows_smem"):
+        expr, args = _c_function(name)
+        env[name] = eval(f"lambda {args}: {expr}", env)
+    return env
+
+
+def _launcher_text(name):
+    start = CANDIDATES.index(f'extern "C" int mapper_{name}(')
+    return CANDIDATES[start:CANDIDATES.index("\n}\n", start)]
+
+
 @pytest.mark.parametrize("width", [64, 192, 448, 1024, 2048, 4992, 5056, 6016, 65536])
 def test_candidates_smem_matches_the_launcher(width):
     """kernels.smem_bytes("candidates", W) is the sum mapper_candidates
-    passes, with the row in shared memory exactly where it fits beside the
-    fixed part (candidates_in_scratch), and the scratch slice the wrapper
-    allocates a block is row_bytes."""
-    row_expr, row_args = _c_function("row_bytes")
-    row_bytes = eval(f"lambda {row_args}: {row_expr}", {})
-    smem_expr, smem_args = _c_function("candidates_smem")
-    smem = eval(f"lambda {smem_args}: {smem_expr}", {"row_bytes": row_bytes})
-    launcher = CANDIDATES[CANDIDATES.index('extern "C" int mapper_candidates('):]
+    passes (a block's teams, each the fixed part and the larger of the row
+    and the vote table), with the row in shared memory exactly where its
+    team stays within kRowSmemLimit (candidates_in_scratch), and the scratch
+    slice the wrapper allocates a block is row_bytes; smem_bytes("fused_rows")
+    is mapper_fused_rows' rows_smem at every rank count, staged or not."""
+    fns = _c_functions()
+    launcher = _launcher_text("candidates")
     assert "candidates_smem(width, in_scratch)" in launcher
     scratch = kernels.candidates_in_scratch(width)
-    assert kernels.candidates_row_bytes(width) == row_bytes(width)
-    assert kernels.smem_bytes("candidates", width) == smem(width, scratch)
-    assert scratch == (smem(width, False) > kernels._SMEM_LIMIT)
+    assert kernels.candidates_row_bytes(width) == fns["row_bytes"](width)
+    assert kernels.smem_bytes("candidates", width) == fns["candidates_smem"](width, scratch)
+    assert scratch == (fns["team_smem"](width, False) > _candidates_constant("kRowSmemLimit"))
     kernels._check_smem(kernels.smem_bytes("candidates", width), width)
-    rows_expr, _ = _c_function("rows_smem")
-    assert kernels.smem_bytes("fused_rows", width) == eval(rows_expr, {})
+    assert "rows_smem(k_out)" in _launcher_text("fused_rows")
+    for k_out in (1, 3, 8, 32, 33, 200):
+        assert kernels.smem_bytes("fused_rows", width, k_out=k_out) == fns["rows_smem"](k_out)
+
+
+@pytest.mark.parametrize("width", [64, 192, 256, 320, 1024, 5056])
+def test_candidates_team_at_each_width(width):
+    """kernels.candidates_team (warps a read, reads a block) is what
+    mapper_candidates launches: kNarrowReads teams of kNarrowWarps warps a
+    block on rows up to kNarrowWidth (the 150 bp chunk's 192, the widest
+    test workload's 256), one block of kWideWarps warps a read above (the
+    1,000 bp chunk's 1,024; the 5,000 bp read's 5,056 in scratch)."""
+    fns = _c_functions()
+    launcher = _launcher_text("candidates")
+    assert "if (narrow(width, in_scratch)) {" in launcher
+    assert "candidates_kernel<kNarrowWarps, kNarrowReads, false>" in launcher
+    assert "(num_reads + kNarrowReads - 1) / kNarrowReads" in launcher
+    assert "kNarrowWarps * 32 * kNarrowReads, smem" in launcher
+    assert "candidates_kernel<kWideWarps, 1, true> : candidates_kernel<kWideWarps, 1, false>" in launcher
+    narrow = fns["narrow"](width, kernels.candidates_in_scratch(width))
+    want = ((_candidates_constant("kNarrowWarps"), _candidates_constant("kNarrowReads")) if narrow
+            else (_candidates_constant("kWideWarps"), 1))
+    assert kernels.candidates_team(width) == want
+    assert narrow == (width <= 256)
 
 
 def test_candidates_threshold_is_between_1000_and_5000_bp():
@@ -243,6 +318,21 @@ def test_candidates_threshold_is_between_1000_and_5000_bp():
     5,000 bp read's (width 5,056) takes the scratch buffer."""
     assert not kernels.candidates_in_scratch(1024)
     assert kernels.candidates_in_scratch(5056)
+
+
+@pytest.mark.parametrize("name", ["candidates", "fused_rows"])
+def test_no_width_accepted_before_is_refused_by_the_candidates_kernels(name):
+    """Every read width KC1 took before its teams (one block a read, its row
+    in shared memory up to 4,992 and in the scratch buffer above) is still
+    within the shared-memory limit; KC2 took any rank count (one block, 128
+    bytes of scan slots) and still does: past kStagedRanks ranks it reads
+    the rows where they lie."""
+    if name == "candidates":
+        for width in (1, 64, 192, 256, 320, 1024, 2560, 2624, 4992, 5056, 65536, 10**6):
+            kernels._check_smem(kernels.smem_bytes(name, width), width)
+        return
+    for k_out in (1, 8, 32, 33, 150, 151, 1000, 10**5):
+        kernels._check_smem(kernels.smem_bytes(name, 192, k_out=k_out), 192)
 
 
 def _cpu_calls():

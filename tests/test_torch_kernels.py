@@ -558,3 +558,18 @@ def test_candidates_kernels_equal_plain(cuda, name):
     got = dc.fused_program(inputs, params, band)
     assert torch.equal(got.cpu(), dc.fused_program(cpu_inputs, params, band))
 
+
+
+@pytest.mark.parametrize("k_out", [3, 40])
+def test_candidates_kernels_at_other_rank_counts(cuda, k_out):
+    """KC1's table and KC2's rows equal their plain versions at other rank
+    counts than the engine's 8: KC2 stages a tile's table rows in shared
+    memory up to 32 ranks and reads them where they lie past that."""
+    contigs, reads = wl.build("score_budget")
+    inputs, _, band = _fused_inputs(contigs, reads, cuda)
+    table = dc.candidates_program(inputs, k_out)
+    rows = dc.fused_rows(table.clone(), inputs, band, k_out)
+    torch.cuda.synchronize()
+    assert torch.equal(table, dc.candidates_plain(inputs, k_out))
+    for got, want in zip(rows, dc.fused_rows_plain(table, inputs, band, k_out)):
+        assert got.dtype == want.dtype and torch.equal(got, want)

@@ -14,7 +14,21 @@ scored-row budget:
   periodic reads whose ranks tie at one vote;
 - `score_budget`: 140 periodic reads that each keep 8 rows, past the 1,024
   rows `score_rows` gives a chunk of 140;
-- `many_contigs`: 40 contigs, for the sequence search of every match."""
+- `many_contigs`: 40 contigs, for the sequence search of every match.
+
+And the edges of the kernels' layouts (KC1's team and vote table, KC2's
+tiles):
+- `vote_keys_full`: a 250 bp read of "TCTC" repeated, whose seeds' matches
+  on a random reference pass P_SLOTS vote entries, each of the 1,024 it
+  keeps a key of its own: KC1's vote table at its fullest, beside eight
+  clean reads;
+- `contigs_deep`: 300 contigs (600 sequences with their reverse
+  complements), a sequence search of ten steps for every match;
+- `one_read`: a chunk of one read; `ragged_chunk`: 131 reads, a multiple
+  neither of the reads a KC1 block takes nor of a KC2 tile's 128;
+- `rows_tiles`: 100 clean reads, then 160 periodic reads that keep 8 rows
+  each: three KC2 tiles, and the 1,024 rows `score_rows` gives the chunk
+  run out inside the second."""
 
 import numpy as np
 
@@ -112,11 +126,41 @@ def many_contigs(rng):
     return contigs, reads
 
 
+def vote_keys_full(rng):
+    ref = random_text(rng, 50_000)
+    return {"plain": ref}, [("vote_keys", ("TCTC" * 63)[:250])] + random_reads(rng, ref, 8)
+
+
+def contigs_deep(rng):
+    contigs = {f"d{i}": random_text(rng, int(rng.integers(300, 600))) for i in range(300)}
+    reads = []
+    for i, text in enumerate(list(contigs.values())[::10]):
+        reads.extend(random_reads(rng, text, 1, length=120, prefix=f"d{10 * i}_"))
+    return contigs, reads
+
+
+def one_read(rng):
+    ref = random_text(rng, 20_000)
+    return {"one": ref}, random_reads(rng, ref, 1)
+
+
+def ragged_chunk(rng):
+    ref = random_text(rng, 40_000)
+    return {"ragged": ref}, random_reads(rng, ref, 131)
+
+
+def rows_tiles(rng):
+    contigs = _plain_and_repeat(rng)
+    return contigs, random_reads(rng, contigs["plain"], 100) + periodic_reads(rng, 160)
+
+
 # name -> (seed, builder)
 WORKLOADS = {
     "single_contig": (11, single_contig), "multi_contig": (12, multi_contig),
     "repetitive": (13, repetitive), "fallback_reasons": (14, fallback_reasons),
     "score_budget": (15, score_budget), "many_contigs": (16, many_contigs),
+    "vote_keys_full": (17, vote_keys_full), "contigs_deep": (18, contigs_deep),
+    "one_read": (19, one_read), "ragged_chunk": (20, ragged_chunk), "rows_tiles": (21, rows_tiles),
 }
 
 
