@@ -85,7 +85,18 @@ Phases (each raises on failure; nothing is caught):
    fused path (every chunk fused, KC1 and KC2 once a fused chunk),
    byte-identical too.  Pairs take the paired path on the fused setting as
    well, as in the JAX engine: phase 7's paired_mates chunk holds KC1 and
-   KC2 at their shape;
+   KC2 at their shape.  Then BASELINE configs 4 and 5, built as
+   `benchmarks/bench_config4_metagenomic.py` and `bench_config5_longreads.py`
+   build them (`simulate_config4`, `simulate_config5`), each with its launch
+   counts read around it and every output it writes byte-identical to its
+   host-scored twin: config 4, 4 genomes of 1 Mb, pairs drawn
+   abundance-skewed 2^-g, `--paired-queries --spacing 100 50
+   --out-refs-map-count --out-sam` (and `--out-unaligned`), cut from the
+   config's 1,000,000 pairs to 20,000 for the smoke's time, banded_i16 must
+   launch; config 5, the 10 Mb reference with three mutated 50 kb repeats,
+   10 kb reads at 2% SNPs, `--split-queries-past-size 1500 --queries ...
+   --infer-ancestors --out-sam` (and `--out-unaligned`), cut from 2,000
+   reads to 200, banded_f32 must launch on the 1,500 bp pieces;
 9. the parallel slice, on a mesh of two shards of the one card
    (`parallel/mesh.py`; each shard on a CUDA stream of its own), launch
    counts read around each path: `sharded_banded_scores` on the host-window
@@ -99,9 +110,23 @@ Phases (each raises on failure; nothing is caught):
    4,096 reads; the CLI as two processes on the card (`--num-processes 2`,
    started together, with the file barrier and with a gloo
    `--coordinator`), all five outputs byte-identical to the one-process run
-   of phase 5; and `--devices 2`, the usage error with one card.
+   of phase 5; and `--devices 2`, the usage error with one card;
+10. the entry points: `graft_entry.entry()`'s step on the card, launch
+   counts read around one call (banded_i16's block kernel once, band 32,
+   nothing else), its scores equal to `banded_scores_reference` on the same
+   arguments (torch.equal) and to the int16 plain version on the card, timed
+   by CUDA events; `graft_entry.dryrun_multichip(1)`, its five checks on the
+   card, launch counts read around it; and `python -m mapper_tpu_torch.bench`
+   as four subprocesses in turns, kernel-scored and host-scored
+   (`MAPPER_TPU_HOST_SCORING=1`): kernel, host, host, kernel, with the
+   engine's default settings.  Each run's JSON line is printed; each aligns
+   at least 99% of its reads; the host-scored runs launch no kernel; the
+   kernel-scored runs' launches (the bench's count around its timed passes)
+   are recorded under the path `bench`.
 
-The line before the last but one lists the kernels as JSON, each with its
+The entry points' numbers are printed as one JSON line
+(`{"entry_points": ...}`).  The line before the last but one lists the
+kernels as JSON, each with its
 time, plain time, bound, what bounds it, library time (or null) and its
 launches on its own path and on the main path; the line before the last is
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -719,10 +744,73 @@ SHORT = ["--queries", "short.fastq"]
 LONG = ["--queries", "long.fastq"]
 PAIRED = ["--paired-queries", "pairs_1.fasta", "pairs_2.fasta", "--spacing", "100", "50"]
 SPLIT = ["--split-queries-past-size", "1500", "--queries", "split.fastq"]
+# BASELINE configs 4 and 5, each under a directory of its own with its
+# reference as ref.fasta (benchmarks/bench_config4_metagenomic.py,
+# bench_config5_longreads.py); the split flag precedes the --queries it
+# applies to (Mapper.java:102-104)
+CONFIG4 = ["--paired-queries", "reads_1.fasta", "reads_2.fasta", "--spacing", "100", "50"]
+CONFIG4_OUTPUTS = ("refs", "sam", "unaligned")
+CONFIG4_PAIRS = 20_000  # the config's 1,000,000 pairs, cut for the smoke's time
+CONFIG5 = ["--split-queries-past-size", "1500", "--queries", "reads.fasta", "--infer-ancestors"]
+CONFIG5_OUTPUTS = ("sam", "unaligned")
+CONFIG5_READS = 200  # the config's 2,000 reads, cut for the smoke's time
 
 
-def run_cli(root: Path, query_args: list[str], tag: str, host_scoring: bool) -> dict:
-    """One CLI run; returns its output bytes and align-phase numbers."""
+def simulate_config4(root: Path) -> None:
+    """Config 4 as `bench_config4_metagenomic.py:23-52` builds it: 4 random
+    genomes of 1 Mb (seed 4), pairs drawn abundance-skewed 2^-g, simulated
+    per genome (seed 40 + g) and concatenated."""
+    import numpy as np
+
+    from benchmarks import simlib
+
+    root.mkdir()
+    rng = np.random.default_rng(4)
+    genomes = {f"genome{g}": simlib.random_reference(rng, 1_000_000) for g in range(4)}
+    simlib.write_reference(str(root / "ref.fasta"), genomes)
+    weights = np.array([2.0 ** -g for g in range(4)])
+    weights /= weights.sum()
+    counts = np.floor(weights * CONFIG4_PAIRS).astype(int)
+    counts[0] += CONFIG4_PAIRS - counts.sum()
+    parts = []
+    for g, text in enumerate(genomes.values()):
+        p1, p2 = root / f"g{g}_1.fasta", root / f"g{g}_2.fasta"
+        simlib.simulate_paired(str(p1), str(p2), text, int(counts[g]), seed=40 + g)
+        parts.append((p1, p2))
+    for mate in (0, 1):
+        (root / f"reads_{mate + 1}.fasta").write_text("".join(pair[mate].read_text() for pair in parts))
+
+
+def simulate_config5(root: Path) -> None:
+    """Config 5 as `bench_config5_longreads.py:24-43` builds it: a 10 Mb
+    reference (seed 5) whose last 150 kb are three copies of its first 50
+    kb at 2% SNPs, and reads of 10 kb at 2% SNPs (seed 5)."""
+    import numpy as np
+
+    from benchmarks import simlib
+
+    root.mkdir()
+    rng = np.random.default_rng(5)
+    base = simlib.random_reference(rng, 10_000_000 - 150_000)
+    segment = np.array(list(base[:50_000]))
+    ref_text = base + "".join("".join(simlib.mutate(rng, segment, 0.02)) for _ in range(3))
+    simlib.write_reference(str(root / "ref.fasta"), {"chr1": ref_text})
+    simlib.simulate_single(str(root / "reads.fasta"), ref_text, CONFIG5_READS, read_length=10_000,
+                           snp_rate=0.02, seed=5)
+
+
+# the CLI's five outputs: name -> (flag, file name)
+OUTPUTS = {
+    "sam": ("--out-sam", "out.sam"), "vcf": ("--out-vcf", "out.vcf"),
+    "mutations": ("--out-mutations", "mutations.txt"), "refs": ("--out-refs-map-count", "refs.txt"),
+    "unaligned": ("--out-unaligned", "unaligned.fastq"),
+}
+
+
+def run_cli(root: Path, query_args: list[str], tag: str, host_scoring: bool,
+            outputs: tuple[str, ...] = tuple(OUTPUTS)) -> dict:
+    """One CLI run against `root`/ref.fasta, writing `outputs` (all five by
+    default); returns their bytes and the align-phase numbers."""
     from mapper_tpu_torch import cli
 
     out = root / tag
@@ -730,10 +818,7 @@ def run_cli(root: Path, query_args: list[str], tag: str, host_scoring: bool) -> 
     args = [
         "--reference", str(root / "ref.fasta"),
         *(str(root / a) if a.endswith((".fasta", ".fastq")) else a for a in query_args),
-        "--out-sam", str(out / "out.sam"), "--out-vcf", str(out / "out.vcf"),
-        "--out-mutations", str(out / "mutations.txt"),
-        "--out-refs-map-count", str(out / "refs.txt"),
-        "--out-unaligned", str(out / "unaligned.fastq"),
+        *(x for name in outputs for x in (OUTPUTS[name][0], str(out / OUTPUTS[name][1]))),
         "--cache-dir", str(root / "index_cache"),
     ]
     env_before = os.environ.get("MAPPER_TPU_HOST_SCORING")
@@ -758,7 +843,8 @@ def run_cli(root: Path, query_args: list[str], tag: str, host_scoring: bool) -> 
     if m is None:
         raise AssertionError(f"{tag}: no align-phase line\n{log.getvalue()[-3000:]}")
     num, seconds = int(m.group(1)), float(m.group(2))
-    unaligned_text = (out / "unaligned.fastq").read_text()
+    files = {name: (out / OUTPUTS[name][1]).read_bytes() for name in outputs}
+    unaligned_text = files["unaligned"].decode()
     # FASTA input writes FASTA records, FASTQ input FASTQ ones
     if unaligned_text.startswith(">"):
         unaligned = sum(line.startswith(">") for line in unaligned_text.splitlines())
@@ -767,9 +853,7 @@ def run_cli(root: Path, query_args: list[str], tag: str, host_scoring: bool) -> 
     counted = re.search(r"Device pileup: (\d+) rows", log.getvalue())
     fused = re.search(r"Device candidates: (\d+) of (\d+) single-end chunks", log.getvalue())
     result = {
-        "sam": (out / "out.sam").read_bytes(),
-        "vcf": (out / "out.vcf").read_bytes(),
-        "mutations": (out / "mutations.txt").read_bytes(),
+        "files": files,
         "device_pileup_rows": None if counted is None else int(counted.group(1)),
         "fused_chunks": None if fused is None else (int(fused.group(1)), int(fused.group(2))),
         "queries": num,
@@ -820,16 +904,18 @@ def cli_phase(root: Path, kernels) -> tuple[dict, dict, dict]:
 
 
 def same_outputs(run: dict, twin: dict, what: str) -> None:
-    """Raises unless SAM, VCF and mutations of two runs are byte-identical,
+    """Raises unless two runs wrote the same outputs, each byte-identical,
     with the first differing lines."""
-    for out in ("sam", "vcf", "mutations"):
-        if run[out] != twin[out]:
+    if run["files"].keys() != twin["files"].keys():
+        raise AssertionError(f"{what}: outputs {sorted(run['files'])} against {sorted(twin['files'])}")
+    for out, data in run["files"].items():
+        if data != twin["files"][out]:
             diff = difflib.unified_diff(
-                twin[out].decode().splitlines(), run[out].decode().splitlines(), lineterm="", n=0
+                twin["files"][out].decode().splitlines(), data.decode().splitlines(), lineterm="", n=0
             )
             shown = "\n".join(line[:300] for line in itertools.islice(diff, 12))
             raise AssertionError(f"{what}: {out} differs:\n{shown}")
-    print(f"[cli] {what}: SAM, VCF and mutations byte-identical", flush=True)
+    print(f"[cli] {what}: {', '.join(run['files'])} byte-identical", flush=True)
 
 
 def device_pileup_phase(root: Path, kernels, short: dict) -> dict:
@@ -1280,18 +1366,21 @@ def device_candidates_phase(root: Path, kernels, runs: dict) -> dict:
     return {"launches": launches, "align": align}
 
 
-def twin_phase(root: Path, kernels, query_args: list[str], tag: str, kernel: str) -> tuple[dict, dict]:
+def twin_phase(root: Path, kernels, query_args: list[str], tag: str, kernel: str,
+               outputs: tuple[str, ...] = tuple(OUTPUTS)) -> tuple[dict, dict]:
     """One kernel-scored CLI run (launch counts read around it; `kernel` must
-    launch) and its host-scored twin (no launch), byte-identical.  Returns
-    the kernel run's launch counts and the twin run."""
+    launch) and its host-scored twin (no launch), every output byte-identical.
+    Returns the kernel run's launch counts and the twin run."""
     kernels.reset_launches()
-    run = run_cli(root, query_args, f"{tag}_kernel", host_scoring=False)
+    run = run_cli(root, query_args, f"{tag}_kernel", host_scoring=False, outputs=outputs)
     launches = dict(kernels.LAUNCHES)
     print(f"[{tag}] kernel launches: {launches}", flush=True)
     if launches[kernel] <= 0:
         raise AssertionError(f"{kernel} was not launched by the {tag} run")
+    if run["aligned_fraction"] < 0.99:
+        raise AssertionError(f"{tag}: aligned fraction {run['aligned_fraction']} < 0.99")
     kernels.reset_launches()
-    twin = run_cli(root, query_args, f"{tag}_host", host_scoring=True)
+    twin = run_cli(root, query_args, f"{tag}_host", host_scoring=True, outputs=outputs)
     if any(kernels.LAUNCHES.values()):
         raise AssertionError(f"the host-scored {tag} run launched kernels: {kernels.LAUNCHES}")
     same_outputs(run, twin, f"{tag}: the kernel-scored run vs the host-scored run")
@@ -1608,6 +1697,125 @@ def devices_beyond_the_card(root: Path) -> None:
     print("[devices] --devices 2 on one card: usage error, exit code 1", flush=True)
 
 
+# ---- the entry points: graft_entry and the bench -------------------------
+
+BENCH_TIMEOUT_S = 300
+BENCH_LAUNCHES = re.compile(r"^\[bench\] kernel launches in the timed passes: (\{.*\})$", re.M)
+
+
+def graft_entry_phase(kernels) -> tuple[dict, dict, dict]:
+    """`graft_entry.entry()` on the card: its step launches banded_i16 (the
+    block kernel, band 32) once and no other kernel, with the launch counts
+    read around one call; its scores equal `banded_scores_reference` on the
+    same arguments exactly (torch.equal); it is timed by CUDA events beside
+    the int16 plain version on the card.  Then `dryrun_multichip(1)`, all
+    five checks on the card, launch counts read around it.  Returns the
+    step's and the dryrun's launch counts and the step's numbers."""
+    import torch
+
+    from mapper_tpu_torch import graft_entry
+    from mapper_tpu_torch.align import banded
+    from mapper_tpu_torch.align.params import AlignmentParameters
+
+    step, args = graft_entry.entry()
+    if any(a.device.type != "cuda" for a in args):
+        raise AssertionError(f"entry(): arguments on {[str(a.device) for a in args]}")
+    kernels.reset_launches()
+    got = step(*args)
+    torch.cuda.synchronize()
+    step_launches = dict(kernels.LAUNCHES)
+    print(f"[graft_entry] kernel launches of one step: {step_launches}", flush=True)
+    if step_launches["banded_i16"] != 1 or sum(step_launches.values()) != 1:
+        raise AssertionError(f"entry()'s step did not launch banded_i16 alone, once: {step_launches}")
+    params = AlignmentParameters.defaults()
+    want = banded.banded_scores_reference(*(a.cpu() for a in args), params, graft_entry.BAND)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"entry()'s step != banded_scores_reference: max error {(got.cpu() - want).abs().max()}")
+    # the int16 route's plain version on the card, on the rows the step pads
+    q, w, n, m = banded._host_rows(*args, graft_entry.BAND, banded.DEFAULT_CHUNK)
+    scale, units = banded._quantize_params(params, q.shape[1], graft_entry.BAND)
+
+    def plain():
+        return banded._from_units(*banded._pen_core_i16(q.to(torch.int32), w.to(torch.int32), n, m, units,
+                                                         graft_entry.BAND), scale)[0]
+
+    if not torch.equal(plain(), got):
+        raise AssertionError("entry()'s step != its plain version on the card")
+    ms = cuda_ms(lambda: step(*args), 20)
+    plain_ms = cuda_ms(plain, 3)
+    cells = cells_of(args[2], q.shape[1], graft_entry.BAND)
+    bound_ms, bound_by = bound(cells, "i16", nbytes(*args, got))
+    numbers = {"scores": list(got.shape), "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "launches": step_launches["banded_i16"]}
+    print(f"[graft_entry] entry(): {len(got)} scores equal to banded_scores_reference; step {ms:.4f} ms "
+          f"(CUDA events), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+
+    kernels.reset_launches()
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        graft_entry.dryrun_multichip(1)
+    dryrun_launches = dict(kernels.LAUNCHES)
+    summary = out.getvalue().strip().splitlines()[-1]
+    print(f"[dryrun] {summary} ({time.time() - t0:.1f} s); kernel launches: {dryrun_launches}", flush=True)
+    if not summary.startswith("dryrun_multichip(1): ok on cuda"):
+        raise AssertionError(f"dryrun_multichip(1): {summary}")
+    if dryrun_launches["banded_i16"] <= 0:
+        raise AssertionError(f"dryrun_multichip(1) launched no banded_i16: {dryrun_launches}")
+    return step_launches, dryrun_launches, numbers
+
+
+def bench_run(host_scoring: bool) -> tuple[dict, dict]:
+    """`python -m mapper_tpu_torch.bench` as a subprocess on
+    MAPPER_TPU_TORCH_DEVICE (`main` sets `cuda`), with the engine's default
+    settings (this process's host-scoring ceiling is not passed on).
+    Returns its JSON line and its timed passes' launches."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MAPPER_TPU_HOST_SCORING", "MAPPER_TPU_HOST_SCORING_MAX_LEN")}
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent) + os.pathsep + env.get("PYTHONPATH", "")
+    if host_scoring:
+        env["MAPPER_TPU_HOST_SCORING"] = "1"
+    proc = subprocess.run([sys.executable, "-m", "mapper_tpu_torch.bench"], env=env, capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    found = BENCH_LAUNCHES.search(proc.stderr)
+    if found is None:
+        raise AssertionError(f"bench printed no launch counts:\n{proc.stderr[-3000:]}")
+    return line, json.loads(found.group(1))
+
+
+def bench_phase() -> tuple[dict, list]:
+    """The bench in turns, kernel-scored and host-scored
+    (`MAPPER_TPU_HOST_SCORING=1`): kernel, host, host, kernel.  Each run's
+    JSON line is printed; each must align at least 99% of its reads and
+    report its scoring; the host-scored runs launch no kernel.  Returns the
+    kernel-scored runs' launches, summed, and the runs in turn order."""
+    launches, runs = {}, []
+    for host_scoring in (False, True, True, False):
+        line, counts = bench_run(host_scoring)
+        scoring = "host" if host_scoring else "kernel"
+        print(json.dumps(line), flush=True)
+        detail = line["detail"]
+        if detail["package"] != "mapper_tpu_torch" or detail["scoring"] != scoring:
+            raise AssertionError(f"bench ({scoring}): detail {detail}")
+        if detail["aligned_fraction"] < 0.99:
+            raise AssertionError(f"bench ({scoring}): aligned fraction {detail['aligned_fraction']} < 0.99")
+        passes = len(detail["pass_seconds"])
+        if host_scoring and any(counts.values()):
+            raise AssertionError(f"the host-scored bench launched kernels: {counts}")
+        for name, k in counts.items():
+            launches[name] = launches.get(name, 0) + k
+        print(f"[bench] {scoring}-scored: {line['value']:.1f} reads/s (median "
+              f"{detail['median_reads_per_second']:.1f}), banded_i16 {counts['banded_i16']} launches in {passes} "
+              f"passes, banded_f32 {counts['banded_f32']}", flush=True)
+        runs.append({"scoring": scoring, "reads_per_second": line["value"],
+                     "median_reads_per_second": detail["median_reads_per_second"],
+                     "banded_i16": counts["banded_i16"], "banded_f32": counts["banded_f32"], "passes": passes})
+    return launches, runs
+
+
 def _dp_rate(dp_type: str) -> dict:
     """The operation count and rate a DP kernel's bound used."""
     ops_per_cell, ops_per_s = DP_RATES[dp_type]
@@ -1735,21 +1943,35 @@ def main() -> int:
         # engine: phase 7's paired_mates chunk holds KC1 and KC2 at their shape
         split_launches, split_twin = twin_phase(root, kernels, SPLIT, "split_queries", "banded_f32")
         _, split_fused = fused_run(root, kernels, SPLIT, "split_queries_fused", split_twin)
+        t0 = time.time()
+        simulate_config4(root / "config4")
+        simulate_config5(root / "config5")
+        print(f"[data] configs 4 and 5 simulated in {time.time() - t0:.1f} s", flush=True)
+        config4_launches, _ = twin_phase(root / "config4", kernels, CONFIG4, "config4", "banded_i16",
+                                         CONFIG4_OUTPUTS)
+        config5_launches, _ = twin_phase(root / "config5", kernels, CONFIG5, "config5", "banded_f32",
+                                         CONFIG5_OUTPUTS)
         mesh_launches, mesh_times = mesh_engine_phase(root, params, kernels, mesh)
         values_ratio = sharded_index_phase(root, mesh)
         multi_launches, multi_align = multi_process_phase(root, runs["short_kernel"])
         devices_beyond_the_card(root)
+    entry_launches, dryrun_launches, entry_numbers = graft_entry_phase(kernels)
+    bench_launches, bench_runs = bench_phase()
 
     print(json.dumps({"device_candidates": {**programs, "cli": fused["align"], "gpu": gpu}}))
     print(json.dumps({"parallel": {"mesh": str(mesh), "mesh_engine": mesh_times,
                                    "sharded_index_values_memory_ratio": values_ratio,
                                    "multi_process": multi_align, "gpu": gpu}}))
+    print(json.dumps({"entry_points": {"graft_entry": entry_numbers, "dryrun_launches": dryrun_launches,
+                                       "bench": bench_runs, "gpu": gpu}}))
     by_path = {
         "main_path": main_launches, "cli": cli_launches, "host_window": window_launches,
         "probe_i16": probe_launches, "device_pileup": pileup_launches,
         "device_candidates": fused["launches"], "paired": paired_launches, "split_queries": split_launches,
         "split_queries_fused": split_fused,
         "mesh": mesh_launches, "multi_process": multi_launches, "sharded_scores": sharded_launches,
+        "config4": config4_launches, "config5": config5_launches,
+        "graft_entry": entry_launches, "dryrun": dryrun_launches, "bench": bench_launches,
     }
     entries = kernel_entries(i16, f32, host_rows, host_extra, probe_rows, programs["kernels"], by_path)
     print(json.dumps({"kernels": entries}))

@@ -25,6 +25,7 @@ import numpy as np, torch
 torch.set_num_threads(1)  # the suite runs in several processes at once
 import mapper_tpu_torch, mapper_tpu_torch.cli, mapper_tpu_torch.align.kernels
 import mapper_tpu_torch.parallel.multihost, mapper_tpu_torch.parallel.sharded_index
+import mapper_tpu_torch.bench, mapper_tpu_torch.graft_entry
 from mapper_tpu_torch import Api, AlignmentParameters
 from mapper_tpu_torch.batch.engine import BatchAligner
 from benchmarks.simlib import random_reference
@@ -51,8 +52,12 @@ sharded = BatchAligner(index, AlignmentParameters.defaults(), mesh=[torch.device
 sharded_results = sharded.process_batch([Query(Sequence.from_text(n, t)) for n, t in reads])
 assert [r is not None and any(r.get_alignments()) for r in sharded_results] == [
     r is not None and any(r.get_alignments()) for r in results]
+# graft_entry's scoring step, on the CPU
+step, args = mapper_tpu_torch.graft_entry.entry("cpu")
+assert step(*args).shape == (64,)
 assert sys.modules["jax"] is None and sys.modules["mapper_tpu"] is None
 assert not [m for m in sys.modules if m.startswith(("jax.", "jaxlib", "mapper_tpu."))]
+assert "bench" not in sys.modules and "__graft_entry__" not in sys.modules
 print("OK", aligned)
 """
 

@@ -4,7 +4,8 @@ scores sharded over a CPU mesh of several entries equal the unsharded
 scores exactly and the JAX mesh's (int16 exactly, f32 within
 `tests/test_pallas_dp.py`'s 1e-5); the engine, the device pileup and the CLI
 give the same results on a mesh as on one device, and as the JAX package on
-its mesh; and `__graft_entry__.dryrun_multichip`'s five checks on the port.
+its mesh; and `graft_entry.dryrun_multichip`'s five checks (the root
+`__graft_entry__.dryrun_multichip`'s) on a CPU mesh.
 The port's CPU mesh has MAPPER_TPU_TORCH_CPU_DEVICES entries."""
 
 import math
@@ -29,6 +30,7 @@ from mapper_tpu.parallel import mesh as jax_mesh
 from mapper_tpu.sequence import Sequence as JaxSequence
 from mapper_tpu_torch import Api, AlignmentParameters, convert
 from mapper_tpu_torch import cli as torch_cli
+from mapper_tpu_torch import graft_entry
 from mapper_tpu_torch.align import banded
 from mapper_tpu_torch.align.query import Query
 from mapper_tpu_torch.batch.device_pileup import DevicePileup
@@ -436,106 +438,13 @@ def test_cli_devices_beyond_visible_is_a_usage_error(monkeypatch, tmp_path, cli_
     assert "--devices 3 requested but only 2 visible" in proc.stderr
 
 
-# ---- __graft_entry__.dryrun_multichip's five checks ---------------------
-
-
-def _dryrun_reference():
-    rng = np.random.default_rng(2)
-    return rng, "".join(rng.choice(list("ACGT"), size=4000))
-
-
-def _check_scores_and_pileup(mesh, what):
-    """1-2: sharded extend scoring on the mesh, then accepted-read depth
-    scattered into one accumulator per entry and summed (the psum fan-in)."""
-    from tests.test_torch_banded import pair_batch
-
-    n_dev, band, lq, ref_len = len(mesh), 32, 64, 512
-    batch = 8 * n_dev
-    q, w, n, m = pair_batch(np.random.default_rng(0), batch, lq, 8, band)
-    params = AlignmentParameters.defaults()
-    scores = mesh_lib.sharded_banded_scores(mesh, params, band)(q, w, n, m)
-    assert scores.shape == (batch,) and torch.isfinite(scores).all()
-    if what == "scores":
-        return
-    offsets = np.random.default_rng(1).integers(0, ref_len - lq, size=batch)
-    pos = torch.as_tensor(offsets)[:, None] + torch.arange(lq)[None, :]
-    covered = torch.arange(lq)[None, :] < torch.as_tensor(n)[:, None]
-    weights = (covered & (scores <= 16.0)[:, None]).to(torch.float32)
-    depths = []
-    for lo, hi in mesh_lib.shard_bounds(mesh, batch):
-        depth = torch.zeros(ref_len)
-        depth.index_add_(0, pos[lo:hi].reshape(-1), weights[lo:hi].reshape(-1))
-        depths.append(depth)
-    total = mesh_lib.reduce_pileup(mesh, depths)
-    want = torch.zeros(ref_len).index_add_(0, pos.reshape(-1), weights.reshape(-1))
-    assert total.shape == (ref_len,) and torch.equal(total, want) and total.sum() > 0
-
-
-def _check_sharded_index(mesh):
-    """3: the hash-range sharded index answers every seed."""
-    from mapper_tpu_torch.batch.candidates import ReadBatch, collect_batch_seeds
-    from mapper_tpu_torch.parallel.sharded_index import ShardedIndex
-
-    rng, ref_text = _dryrun_reference()
-    db = Api.new_database({"c": ref_text}).hashblock_database
-    reads = [Sequence.from_text(f"r{i}", ref_text[int(rng.integers(0, 3800)) :][:150]) for i in range(8)]
-    seg, _, _, num_bp, key, _ = collect_batch_seeds(ReadBatch.from_sequences(reads), db)
-    vals, counts, valid = ShardedIndex(db, mesh, k_match=8).lookup(num_bp, key)
-    assert vals.shape == (seg.shape[0], 8) and valid.any() and (counts > 0).all()
-
-
-def _check_engine(mesh):
-    """4: the engine on the mesh, single-end and paired queries, all aligned."""
-    _, ref_text = _dryrun_reference()
-    rng = np.random.default_rng(3)
-    index = Api.new_database({"c": ref_text})
-    engine = BatchAligner(index, AlignmentParameters.defaults(), mesh=mesh, pipeline_chunk_reads=None)
-    queries = []
-    for i in range(2 * len(mesh)):
-        pos = int(rng.integers(0, 3400))
-        frag = ref_text[pos : pos + 300]
-        if i % 2 == 0:
-            queries.append(Query(Sequence.from_text(f"q{i}", frag[:100])))
-        else:
-            queries.append(Query(
-                Sequence.from_text(f"q{i}/1", frag[:100]), Sequence.from_text(f"q{i}/2", rc_text(frag[-100:])),
-                expected_inner_distance=100, spacing_deviation_per_unit_penalty=50,
-            ))
-    results = engine.process_batch(queries, notify=False)
-    aligned = sum(1 for r in results if r is not None and r.get_first_alignments())
-    assert aligned == len(queries)
-
-
-def _check_cli(mesh, tmp_path, monkeypatch):
-    """5: the CLI with --devices N writes the SAM of --devices 1."""
-    rng, ref_text = _dryrun_reference()
-    (tmp_path / "ref.fasta").write_text(">c\n" + ref_text + "\n")
-    reads = "".join(
-        f">cr{i}\n{ref_text[p : p + 120]}\n"
-        for i, p in enumerate(int(rng.integers(0, 3800)) for _ in range(4 * len(mesh)))
-    )
-    (tmp_path / "reads.fasta").write_text(reads)
-    monkeypatch.setenv("MAPPER_TPU_TORCH_DEVICE", "cpu")
-    sams = {}
-    for nd in (1, len(mesh)):
-        sam = tmp_path / f"out{nd}.sam"
-        assert torch_cli.main([
-            "--reference", str(tmp_path / "ref.fasta"), "--queries", str(tmp_path / "reads.fasta"),
-            "--out-sam", str(sam), "--devices", str(nd),
-        ]) == 0
-        sams[nd] = sam.read_text()
-    assert sams[1] == sams[len(mesh)] and sams[1].count("\n") > 4 * len(mesh)
+# ---- dryrun_multichip's five checks ------------------------------------
 
 
 @pytest.mark.parametrize("check", ["scores", "pileup", "sharded_index", "engine", "cli"])
-def test_dryrun_multichip_checks(monkeypatch, tmp_path, check):
-    """`__graft_entry__.dryrun_multichip(4)`'s checks on a 4-entry CPU mesh."""
+def test_dryrun_multichip_checks(monkeypatch, check):
+    """`graft_entry.dryrun_multichip(4)`'s checks (the root
+    `__graft_entry__.dryrun_multichip`'s five) on a 4-entry CPU mesh, each
+    the function the dryrun calls."""
     mesh = cpu_mesh(monkeypatch, 4)
-    if check in ("scores", "pileup"):
-        _check_scores_and_pileup(mesh, check)
-    elif check == "sharded_index":
-        _check_sharded_index(mesh)
-    elif check == "engine":
-        _check_engine(mesh)
-    else:
-        _check_cli(mesh, tmp_path, monkeypatch)
+    graft_entry.CHECKS[check](mesh)
