@@ -6,8 +6,9 @@
    100,000 reads) and runs the CLI on them four times in turns with
    MAPPER_TPU_TRACE=1: kernel-scored (the default path), on the fused path
    (MAPPER_TPU_DEVICE_CANDIDATES=1) twice, kernel-scored again. Prints the
-   engine's stage times summed over chunks and pool threads, per run, and
-   each run's align phase.
+   engine's stage times (its `engine.*` spans from the run's `[trace]`
+   line) summed over chunks and pool threads, per run, and each run's align
+   phase.
 2. On the first 4,096 reads, with the engine's band and half-windows, traces
    three calls each of the candidates program and the fused program with
    torch.profiler: wall milliseconds a call, device-busy milliseconds a call
@@ -58,8 +59,8 @@ def simulate(root: Path) -> None:
 
 
 def traced_cli(root: Path, tag: str, fused: bool) -> dict:
-    """One CLI run with the engine's stage tracer: the seconds of each stage
-    summed over chunks and threads, how often each was marked, and the align
+    """One traced CLI run: the seconds of each engine stage (span) summed
+    over chunks and threads, how often each was recorded, and the align
     phase."""
     from mapper_tpu_torch import cli
 
@@ -81,9 +82,11 @@ def traced_cli(root: Path, tag: str, fused: bool) -> dict:
         raise RuntimeError(f"{tag}: CLI returned {rc}\n{err.getvalue()[-2000:]}")
     stages = collections.Counter()
     counts = collections.Counter()
-    for label, seconds in re.findall(r"\[engine\] ([^:(]+?)(?: \([^)]*\))?: ([0-9.]+)s", out.getvalue()):
-        stages[label] += float(seconds)
-        counts[label] += 1
+    (line,) = [line for line in err.getvalue().splitlines() if line.startswith("[trace] ")]
+    for name, _, t0, t1, *_ in json.loads(line[len("[trace] "):])["spans"]:
+        if name.startswith("engine.") and name != "engine.batch" and t1 is not None:
+            stages[name] += t1 - t0
+            counts[name] += 1
     align = re.search(r"Align phase: \d+ queries in ([0-9.]+)s", err.getvalue())
     return {"stages_s": dict(stages), "stage_counts": dict(counts), "align_s": float(align.group(1))}
 

@@ -61,6 +61,7 @@ from mapper_tpu_torch.batch.candidates import (
 )
 from mapper_tpu_torch.sequence import Sequence
 from mapper_tpu_torch.align.banded import banded_scores_gathered
+from mapper_tpu_torch.trace import OFF
 from mapper_tpu_torch.parallel.mesh import make_mesh, replicate
 
 EPS = 1e-3
@@ -160,9 +161,11 @@ class BatchAligner:
         self._upload_lock = threading.Lock()
         self._concat_devs: dict[torch.device, torch.Tensor] = {}
         self._ref_cache: dict[int, tuple] = {}
-        # optional collections.Counter: the gapped-finalization gates count
-        # their reject reasons here when set (perf debugging)
-        self._gap_debug = None
+        # the CLI's span and counter recorder (trace.py) when tracing; with
+        # print_decide_seconds each single-end chunk's decision seconds also
+        # go to stdout as `[engine] decisions+emit: <s>s`
+        self.tracer = OFF
+        self.print_decide_seconds = False
         # optional AlignmentCache probed/stored at process_batch intake (the
         # reference's per-worker cache, AlignerWorker.java:264-291); hit and
         # skip counts land on fallback_worker.stats for the CLI report
@@ -171,92 +174,112 @@ class BatchAligner:
     # ------------------------------------------------------------------
 
     def process_batch(
-        self, queries: list[Query], notify: bool = True
+        self, queries: list[Query], notify: bool = True, batch_id: int | None = None
     ) -> list[QueryAlignments]:
+        """`batch_id` tags the batch's spans when tracing (trace.py)."""
+        with self.tracer.span("engine.batch", batch=batch_id):
+            return self._process_batch_cached(queries, notify)
+
+    def _process_batch_cached(self, queries: list[Query], notify: bool) -> list[QueryAlignments]:
         if self.cache is None or not queries:
             return self._process_batch_uncached(queries, notify)
         # alignment result cache at chunk intake (AlignerWorker.java:264-291
         # semantics, adaptive store fraction of AlignerWorker.java:129-155):
         # content-hash hits skip candidate generation + scoring entirely and
         # replay the stored alignment onto the new Query
-        stats = self.fallback_worker.stats
-        enable_fraction = self.cache.choose_enable_fraction(len(queries))
-        keys = [q.content_hash() for q in queries]
-        results: list[QueryAlignments | None] = [None] * len(queries)
-        remaining = []
-        for i, q in enumerate(queries):
-            cached = self.cache.get(keys[i])
-            if cached is not None and cached.get_num_components() == 1:
-                stats.num_cache_hits += 1
-                new_component = [
-                    option.with_query(q.get_sequences())
-                    for option in cached.get_first_alignments()
-                ]
-                results[i] = QueryAlignments.single_component(
-                    q.get_sequences(), new_component
-                )
-                self.stats_batch_resolved += 1
-            else:
-                remaining.append(i)
+        with self.tracer.span("engine.cache"):
+            stats = self.fallback_worker.stats
+            enable_fraction = self.cache.choose_enable_fraction(len(queries))
+            keys = [q.content_hash() for q in queries]
+            results: list[QueryAlignments | None] = [None] * len(queries)
+            remaining = []
+            for i, q in enumerate(queries):
+                cached = self.cache.get(keys[i])
+                if cached is not None and cached.get_num_components() == 1:
+                    stats.num_cache_hits += 1
+                    new_component = [
+                        option.with_query(q.get_sequences())
+                        for option in cached.get_first_alignments()
+                    ]
+                    results[i] = QueryAlignments.single_component(
+                        q.get_sequences(), new_component
+                    )
+                    self.stats_batch_resolved += 1
+                else:
+                    remaining.append(i)
         batch_hits = len(queries) - len(remaining)
+        if batch_hits and self.tracer.on:  # the hits' queries never reach the triage's count
+            self._count_queries(np.fromiter(
+                (q.get_num_sequences() for q, r in zip(queries, results) if r is not None), np.int64, batch_hits))
         batch_skips = 0
         if remaining:
             sub_results = self._process_batch_uncached(
                 [queries[i] for i in remaining], notify=False
             )
-            for local, i in enumerate(remaining):
-                results[i] = sub_results[local]
-                normalized = (keys[i] % (1 << 32)) / float(1 << 32)
-                if normalized <= enable_fraction:
-                    self.cache.add(keys[i], results[i])
-                else:
-                    stats.num_cache_skips += 1
-                    batch_skips += 1
+            with self.tracer.span("engine.cache"):
+                for local, i in enumerate(remaining):
+                    results[i] = sub_results[local]
+                    normalized = (keys[i] % (1 << 32)) / float(1 << 32)
+                    if normalized <= enable_fraction:
+                        self.cache.add(keys[i], results[i])
+                    else:
+                        stats.num_cache_skips += 1
+                        batch_skips += 1
         # feed the adaptive formula (the cache's own counters drive
         # chooseEnableFraction, AlignerWorker.java:129-155)
         self.cache.add_hits_and_skips(batch_hits, batch_skips)
+        self.tracer.count("cache.hits", batch_hits)
+        self.tracer.count("cache.skips", batch_skips)
         if notify:
             for listener in self.listeners:
                 listener.add_alignments(results)
         return results
+
+    def _count_queries(self, sequences: np.ndarray) -> None:
+        """Counts queries of one sequence and of two (pairs), given each
+        query's number of sequences."""
+        self.tracer.count("reads.single", int(np.count_nonzero(sequences == 1)))
+        self.tracer.count("reads.paired", int(np.count_nonzero(sequences == 2)))
 
     def _process_batch_uncached(
         self, queries: list[Query], notify: bool = True
     ) -> list[QueryAlignments]:
         results: list[QueryAlignments | None] = [None] * len(queries)
 
-        # vectorized triage: one ambiguity pass over all component sequences
-        # (per-query numpy calls cost more than the checks themselves)
-        all_seqs = [s for q in queries for s in q.get_sequences()]
-        counts = np.fromiter(
-            (q.get_num_sequences() for q in queries), np.int64, count=len(queries)
-        )
-        if all_seqs:
-            lengths = np.fromiter((len(s) for s in all_seqs), np.int64, count=len(all_seqs))
-            codes = np.concatenate([s.codes for s in all_seqs])
-            amb = basepairs.POPCOUNT_TABLE[codes] != 1
-            starts = np.zeros(len(all_seqs) + 1, dtype=np.int64)
-            np.cumsum(lengths, out=starts[1:])
-            if len(amb):
-                amb_counts = np.add.reduceat(amb, np.minimum(starts[:-1], len(amb) - 1))
-                amb_counts[lengths == 0] = 0
-            else:
-                amb_counts = np.zeros(len(all_seqs), dtype=np.int64)
-            seq_clean = (lengths <= self.max_query_length) & (amb_counts == 0)
-            qstarts = np.zeros(len(queries) + 1, dtype=np.int64)
-            np.cumsum(counts, out=qstarts[1:])
-            clean_all = np.logical_and.reduceat(
-                np.append(seq_clean, True), np.minimum(qstarts[:-1], len(seq_clean))
+        with self.tracer.span("engine.triage"):
+            # vectorized triage: one ambiguity pass over all component sequences
+            # (per-query numpy calls cost more than the checks themselves)
+            all_seqs = [s for q in queries for s in q.get_sequences()]
+            counts = np.fromiter(
+                (q.get_num_sequences() for q in queries), np.int64, count=len(queries)
             )
-            clean_all[counts == 0] = True
-        else:
-            clean_all = np.ones(len(queries), dtype=bool)
+            if all_seqs:
+                lengths = np.fromiter((len(s) for s in all_seqs), np.int64, count=len(all_seqs))
+                codes = np.concatenate([s.codes for s in all_seqs])
+                amb = basepairs.POPCOUNT_TABLE[codes] != 1
+                starts = np.zeros(len(all_seqs) + 1, dtype=np.int64)
+                np.cumsum(lengths, out=starts[1:])
+                if len(amb):
+                    amb_counts = np.add.reduceat(amb, np.minimum(starts[:-1], len(amb) - 1))
+                    amb_counts[lengths == 0] = 0
+                else:
+                    amb_counts = np.zeros(len(all_seqs), dtype=np.int64)
+                seq_clean = (lengths <= self.max_query_length) & (amb_counts == 0)
+                qstarts = np.zeros(len(queries) + 1, dtype=np.int64)
+                np.cumsum(counts, out=qstarts[1:])
+                clean_all = np.logical_and.reduceat(
+                    np.append(seq_clean, True), np.minimum(qstarts[:-1], len(seq_clean))
+                )
+                clean_all[counts == 0] = True
+            else:
+                clean_all = np.ones(len(queries), dtype=bool)
 
-        batch_indices = np.nonzero((counts == 1) & clean_all)[0].tolist()
-        paired_indices = np.nonzero((counts == 2) & clean_all)[0].tolist()
-        fallback_indices = np.nonzero(~((counts <= 2) & (counts >= 1) & clean_all))[
-            0
-        ].tolist()
+            batch_indices = np.nonzero((counts == 1) & clean_all)[0].tolist()
+            paired_indices = np.nonzero((counts == 2) & clean_all)[0].tolist()
+            fallback_indices = np.nonzero(~((counts <= 2) & (counts >= 1) & clean_all))[
+                0
+            ].tolist()
+        self._count_queries(counts)
 
         if batch_indices:
             batch_queries = [queries[i] for i in batch_indices]
@@ -284,9 +307,11 @@ class BatchAligner:
         # the JAX engine on its 2-vCPU host: the OpenMP stages already
         # saturate the cores and the Python halves of worker.align contend
         # on the GIL.  Serial it stays (not yet measured on the GPU host).
-        for i in fallback_indices:
-            self.stats_fallback_reads += 1
-            results[i] = self.fallback_worker.align(queries[i])
+        with self.tracer.span("engine.fallback"):
+            for i in fallback_indices:
+                self.stats_fallback_reads += 1
+                results[i] = self.fallback_worker.align(queries[i])
+        self.tracer.count("reads.fallback", len(fallback_indices))
 
         # "query at random moment" sampling at chunk granularity: when this
         # moment is selected, record a uniformly random query from the chunk
@@ -373,110 +398,116 @@ class BatchAligner:
         """Host stages + asynchronous device dispatch for one chunk of pairs."""
         p = self.parameters
         num_pairs = len(queries)
-        components: list[Sequence] = []
-        for query in queries:
-            components.append(query.get_sequence(0))
-            components.append(query.get_sequence(1).reverse_complement())
-        batch = ReadBatch.from_sequences(components)
-        self.stats_batch_reads += num_pairs
-        table = generate_candidates(
-            batch, self.database, max_candidates_per_read=self.max_candidates_per_read
-        )
-        order = np.argsort(table.read_id, kind="stable")
-        bounds = np.searchsorted(table.read_id[order], np.arange(2 * num_pairs + 1))
-        combos = self._paired_combos(queries, batch, table, order, bounds)
+        with self.tracer.span("engine.candidates"):
+            components: list[Sequence] = []
+            for query in queries:
+                components.append(query.get_sequence(0))
+                components.append(query.get_sequence(1).reverse_complement())
+            batch = ReadBatch.from_sequences(components)
+            self.stats_batch_reads += num_pairs
+            table = generate_candidates(
+                batch, self.database, max_candidates_per_read=self.max_candidates_per_read
+            )
+        self.tracer.count("rows.candidates", len(table))
+        with self.tracer.span("engine.pairing"):
+            order = np.argsort(table.read_id, kind="stable")
+            bounds = np.searchsorted(table.read_id[order], np.arange(2 * num_pairs + 1))
+            combos = self._paired_combos(queries, batch, table, order, bounds)
 
-        if not self.paired_vectorized or len(table) == 0 or combos["pair"].shape[0] == 0:
-            return {
-                "exact": True,
-                "queries": queries,
-                "components": components,
-                "table": table,
-                "combos": combos,
-            }
+            if not self.paired_vectorized or len(table) == 0 or combos["pair"].shape[0] == 0:
+                return {
+                    "exact": True,
+                    "queries": queries,
+                    "components": components,
+                    "table": table,
+                    "combos": combos,
+                }
 
-        # per-pair banded window sized for the whole pair budget: the exact
-        # path can grant one mate nearly the entire pair budget
-        # (QueryMatch_Aligner.java:207-239), so certification needs the band
-        # to cover the pair-level max indel, not the per-mate one
-        total_len = batch.lengths[0::2] + batch.lengths[1::2]
-        max_indel_pair = np.maximum(
-            0,
-            (
-                (total_len * p.max_error_rate - p.deletion_start_penalty)
-                / p.deletion_extension_penalty
-            ).astype(np.int64),
-        )
-        if self.band is not None:
-            band = self.band
-        else:
-            band = 64 if int(max_indel_pair.max(initial=0)) <= 31 else 128
-        certified_pair = max_indel_pair <= band // 2
+            # per-pair banded window sized for the whole pair budget: the exact
+            # path can grant one mate nearly the entire pair budget
+            # (QueryMatch_Aligner.java:207-239), so certification needs the band
+            # to cover the pair-level max indel, not the per-mate one
+            total_len = batch.lengths[0::2] + batch.lengths[1::2]
+            max_indel_pair = np.maximum(
+                0,
+                (
+                    (total_len * p.max_error_rate - p.deletion_start_penalty)
+                    / p.deletion_extension_penalty
+                ).astype(np.int64),
+            )
+            if self.band is not None:
+                band = self.band
+            else:
+                band = 64 if int(max_indel_pair.max(initial=0)) <= 31 else 128
+            certified_pair = max_indel_pair <= band // 2
 
-        # pairs that will defer regardless of scores (overlap algebra or an
-        # uncertifiable band) never need device scoring; neither do combos
-        # whose spacing penalty alone exceeds the pair budget (the exact
-        # path's min-possible early reject, QueryMatch_Aligner.java:95-101)
-        pair_of = combos["pair"]
-        max_allowed = np.nextafter(
-            total_len.astype(np.float64) * p.max_error_rate, np.inf
-        )
-        pre_defer = ~certified_pair
-        if pair_of.shape[0]:
-            overlap_pairs = pair_of[combos["inner"] < 0]
-            pre_defer = pre_defer.copy()
-            pre_defer[overlap_pairs] = True
-        alive = (
-            (combos["inner"] >= 0)
-            & (combos["spacing"] <= max_allowed[pair_of])
-            & ~pre_defer[pair_of]
-        )
-        combos = dict(combos)
-        combos["alive"] = alive
+            # pairs that will defer regardless of scores (overlap algebra or an
+            # uncertifiable band) never need device scoring; neither do combos
+            # whose spacing penalty alone exceeds the pair budget (the exact
+            # path's min-possible early reject, QueryMatch_Aligner.java:95-101)
+            pair_of = combos["pair"]
+            max_allowed = np.nextafter(
+                total_len.astype(np.float64) * p.max_error_rate, np.inf
+            )
+            pre_defer = ~certified_pair
+            if pair_of.shape[0]:
+                overlap_pairs = pair_of[combos["inner"] < 0]
+                pre_defer = pre_defer.copy()
+                pre_defer[overlap_pairs] = True
+            alive = (
+                (combos["inner"] >= 0)
+                & (combos["spacing"] <= max_allowed[pair_of])
+                & ~pre_defer[pair_of]
+            )
+            combos = dict(combos)
+            combos["alive"] = alive
 
-        # only rows that participate in a live combo need device scores
-        used = np.unique(
-            np.concatenate([combos["row0"][alive], combos["row1"][alive]])
-        )
-        if used.shape[0] == 0:
-            return {
-                "exact": True,
-                "queries": queries,
-                "components": components,
-                "table": table,
-                "combos": combos,
-            }
-        inv = np.full(len(table), 0, dtype=np.int64)  # dead combos index row 0
-        inv[used] = np.arange(used.shape[0])
-        subtable = table.take(used)
-        combos["srow0"] = inv[combos["row0"]]
-        combos["srow1"] = inv[combos["row1"]]
+            # only rows that participate in a live combo need device scores
+            used = np.unique(
+                np.concatenate([combos["row0"][alive], combos["row1"][alive]])
+            )
+            if used.shape[0] == 0:
+                return {
+                    "exact": True,
+                    "queries": queries,
+                    "components": components,
+                    "table": table,
+                    "combos": combos,
+                }
+            inv = np.full(len(table), 0, dtype=np.int64)  # dead combos index row 0
+            inv[used] = np.arange(used.shape[0])
+            subtable = table.take(used)
+            combos["srow0"] = inv[combos["row0"]]
+            combos["srow1"] = inv[combos["row1"]]
 
         # host certificate, as in the single-end path: rows whose exact
         # float64 ungapped penalty is within the straight short-circuit bound
         # resolve on the host; only the rest ship to the device
-        shift_per_component = np.minimum(np.repeat(max_indel_pair, 2), band // 2)
-        geom = self._window_geometry(batch, subtable, shift_per_component)
-        u_used = np.full(len(subtable), np.inf)
-        ic_rows = np.nonzero(geom["in_contig"])[0]
-        if ic_rows.shape[0]:
-            u_used[ic_rows] = self._ungapped_penalties(components, subtable, ic_rows)
-        min_indel = min(
-            p.get_starting_insertion_start_penalty() + p.insertion_extension_penalty,
-            p.deletion_start_penalty + p.deletion_extension_penalty,
-        )
-        skip = geom["in_contig"] & ~geom["at_edge"] & (u_used <= min_indel)
-        dev_rows = np.nonzero(~skip)[0]
-        if dev_rows.shape[0]:
-            dev_sub = subtable.take(dev_rows)
-            sctx = self._dispatch_scores(
-                components, batch, dev_sub, shift_per_component, band,
-                # each mate may spend up to the pair budget (exact algebra
-                # re-allocation) — the scoring DP must not cap at mate level
-                budget_len=total_len[dev_sub.read_id // 2],
+        with self.tracer.span("engine.certificate"):
+            shift_per_component = np.minimum(np.repeat(max_indel_pair, 2), band // 2)
+            geom = self._window_geometry(batch, subtable, shift_per_component)
+            u_used = np.full(len(subtable), np.inf)
+            ic_rows = np.nonzero(geom["in_contig"])[0]
+            if ic_rows.shape[0]:
+                u_used[ic_rows] = self._ungapped_penalties(components, subtable, ic_rows)
+            min_indel = min(
+                p.get_starting_insertion_start_penalty() + p.insertion_extension_penalty,
+                p.deletion_start_penalty + p.deletion_extension_penalty,
             )
-        else:
-            sctx = None
+            skip = geom["in_contig"] & ~geom["at_edge"] & (u_used <= min_indel)
+            dev_rows = np.nonzero(~skip)[0]
+        self.tracer.count("rows.device", dev_rows.shape[0])
+        with self.tracer.span("engine.dispatch"):
+            if dev_rows.shape[0]:
+                dev_sub = subtable.take(dev_rows)
+                sctx = self._dispatch_scores(
+                    components, batch, dev_sub, shift_per_component, band,
+                    # each mate may spend up to the pair budget (exact algebra
+                    # re-allocation) — the scoring DP must not cap at mate level
+                    budget_len=total_len[dev_sub.read_id // 2],
+                )
+            else:
+                sctx = None
         return {
             "exact": False,
             "queries": queries,
@@ -497,18 +528,20 @@ class BatchAligner:
     def _finish_paired(self, ctx) -> list[QueryAlignments | None]:
         queries = ctx["queries"]
         if ctx["exact"]:
-            return [
-                self._align_paired_pair_exact(
-                    queries[i], ctx["components"], ctx["table"], ctx["combos"], i
-                )
-                for i in range(len(queries))
-            ]
+            with self.tracer.span("engine.pair_exact"):
+                return [
+                    self._align_paired_pair_exact(
+                        queries[i], ctx["components"], ctx["table"], ctx["combos"], i
+                    )
+                    for i in range(len(queries))
+                ]
         # certificate rows resolve to their exact host penalty; device rows
         # fill from the compacted call
         ungapped = np.where(ctx["skip"], ctx["u_used"], np.inf)
         banded = ungapped.copy()
         if ctx["sctx"] is not None:
-            d_ung, d_banded = self._finish_scores(ctx["sctx"])
+            with self.tracer.span("engine.fetch"):
+                d_ung, d_banded = self._finish_scores(ctx["sctx"])
             ungapped[ctx["dev_rows"]] = d_ung
             banded[ctx["dev_rows"]] = d_banded
         return self._paired_decisions(
@@ -604,133 +637,135 @@ class BatchAligner:
         self, queries, components, batch, table, combos, geom, u_used, ungapped,
         banded, total_len, pre_defer,
     ) -> list[QueryAlignments | None]:
-        p = self.parameters
-        num_pairs = len(queries)
-        pair_of = combos["pair"]
-        row0, row1 = combos["row0"], combos["row1"]
-        srow0, srow1 = combos["srow0"], combos["srow1"]
-        spacing = combos["spacing"]
-        alive = combos["alive"]
+        with self.tracer.span("engine.decide"):
+            p = self.parameters
+            num_pairs = len(queries)
+            pair_of = combos["pair"]
+            row0, row1 = combos["row0"], combos["row1"]
+            srow0, srow1 = combos["srow0"], combos["srow1"]
+            spacing = combos["spacing"]
+            alive = combos["alive"]
 
-        score = np.where(geom["valid"], np.minimum(banded, ungapped), np.inf)
-        total = np.where(alive, score[srow0] + score[srow1] + spacing, np.inf)
-        tl = total_len[pair_of].astype(np.float64)
-        max_allowed = np.nextafter(tl * p.max_error_rate, np.inf)
-        viable = total <= max_allowed
+            score = np.where(geom["valid"], np.minimum(banded, ungapped), np.inf)
+            total = np.where(alive, score[srow0] + score[srow1] + spacing, np.inf)
+            tl = total_len[pair_of].astype(np.float64)
+            max_allowed = np.nextafter(tl * p.max_error_rate, np.inf)
+            viable = total <= max_allowed
 
-        pbounds = np.searchsorted(pair_of, np.arange(num_pairs + 1))
-        starts, ends = pbounds[:-1], pbounds[1:]
-        nonempty = starts < ends
-        best = np.full(num_pairs, np.inf)
-        if pair_of.shape[0]:
-            safe_starts = np.minimum(starts, pair_of.shape[0] - 1)
-            best = np.where(nonempty, np.minimum.reduceat(total, safe_starts), np.inf)
+            pbounds = np.searchsorted(pair_of, np.arange(num_pairs + 1))
+            starts, ends = pbounds[:-1], pbounds[1:]
+            nonempty = starts < ends
+            best = np.full(num_pairs, np.inf)
+            if pair_of.shape[0]:
+                safe_starts = np.minimum(starts, pair_of.shape[0] - 1)
+                best = np.where(nonempty, np.minimum.reduceat(total, safe_starts), np.inf)
 
-        # the tightening-MaxErrorRate + Max_PenaltySpan cutoff algebra
-        # (QueryMatch_Aligner.java:35-54,71-92) in float64
-        ptl = total_len.astype(np.float64)
-        target = best + p.max_penalty_span
-        ratio = target / ptl
-        tightened = np.where(ratio * ptl < target, np.nextafter(ratio, np.inf), ratio)
-        rate_final = np.minimum(p.max_error_rate, tightened)
-        cutoff = np.minimum(target, ptl * rate_final)
-        emit = viable & (total <= cutoff[pair_of])
+            # the tightening-MaxErrorRate + Max_PenaltySpan cutoff algebra
+            # (QueryMatch_Aligner.java:35-54,71-92) in float64
+            ptl = total_len.astype(np.float64)
+            target = best + p.max_penalty_span
+            ratio = target / ptl
+            tightened = np.where(ratio * ptl < target, np.nextafter(ratio, np.inf), ratio)
+            rate_final = np.minimum(p.max_error_rate, tightened)
+            cutoff = np.minimum(target, ptl * rate_final)
+            emit = viable & (total <= cutoff[pair_of])
 
-        # deferral to the exact per-pair path
-        unclean_row = (
-            geom["at_edge"] | ~geom["in_contig"] | (banded < ungapped - EPS)
-        )
-        combo_defer = viable & (unclean_row[srow0] | unclean_row[srow1])
-        defer = pre_defer.copy()
-        defer[pair_of[combo_defer]] = True
-        emit &= ~defer[pair_of]
-        emit_counts = np.bincount(pair_of[emit], minlength=num_pairs)
+            # deferral to the exact per-pair path
+            unclean_row = (
+                geom["at_edge"] | ~geom["in_contig"] | (banded < ungapped - EPS)
+            )
+            combo_defer = viable & (unclean_row[srow0] | unclean_row[srow1])
+            defer = pre_defer.copy()
+            defer[pair_of[combo_defer]] = True
+            emit &= ~defer[pair_of]
+            emit_counts = np.bincount(pair_of[emit], minlength=num_pairs)
 
-        # exact float64 penalties for every emitted component: emitted combos'
-        # rows are in-contig (off-contig rows are unclean, deferring the pair),
-        # and the dispatch stage already computed their penalties
-        pen0, pen1 = u_used[srow0[emit]], u_used[srow1[emit]]
-        exact_total = pen0 + pen1 + spacing[emit]
-        emit_pair = pair_of[emit]
-        # float64 recheck of the device-float32 accept (disagreement defers)
-        bad64 = exact_total > max_allowed[emit]
-        defer[emit_pair[bad64]] = True
+            # exact float64 penalties for every emitted component: emitted combos'
+            # rows are in-contig (off-contig rows are unclean, deferring the pair),
+            # and the dispatch stage already computed their penalties
+            pen0, pen1 = u_used[srow0[emit]], u_used[srow1[emit]]
+            exact_total = pen0 + pen1 + spacing[emit]
+            emit_pair = pair_of[emit]
+            # float64 recheck of the device-float32 accept (disagreement defers)
+            bad64 = exact_total > max_allowed[emit]
+            defer[emit_pair[bad64]] = True
 
-        results: list[QueryAlignments | None] = [None] * num_pairs
-        deferred: list[int] = []
-        e_row0, e_row1 = row0[emit], row1[emit]
-        e_spacing = spacing[emit]
-        e_inner = combos["inner"][emit]
-        ebounds = np.searchsorted(emit_pair, np.arange(num_pairs + 1))
-        dp_rows: list[int] = []  # candidate-table rows to count on the device
-        take_device_pileup = self.device_pileup is not None
-        for pi in range(num_pairs):
-            if not nonempty[pi]:
-                continue  # no pairing at all: sequential fallback (mate rescue)
-            if defer[pi]:
-                deferred.append(pi)
-                continue
-            if not np.isfinite(best[pi]):
-                continue  # nothing viable: sequential fallback
-            query = queries[pi]
-            if emit_counts[pi] > p.max_num_matches:
-                results[pi] = QueryAlignments.unaligned(query.get_sequences())
-                continue
-            choices = []
-            for c in range(int(ebounds[pi]), int(ebounds[pi + 1])):
-                choices.append(
-                    self._make_ungapped_pair(
-                        query, components, table, int(e_row0[c]), int(e_row1[c]),
-                        float(e_spacing[c]), float(pen0[c]), float(pen1[c]),
+            results: list[QueryAlignments | None] = [None] * num_pairs
+            deferred: list[int] = []
+            e_row0, e_row1 = row0[emit], row1[emit]
+            e_spacing = spacing[emit]
+            e_inner = combos["inner"][emit]
+            ebounds = np.searchsorted(emit_pair, np.arange(num_pairs + 1))
+            dp_rows: list[int] = []  # candidate-table rows to count on the device
+            take_device_pileup = self.device_pileup is not None
+            for pi in range(num_pairs):
+                if not nonempty[pi]:
+                    continue  # no pairing at all: sequential fallback (mate rescue)
+                if defer[pi]:
+                    deferred.append(pi)
+                    continue
+                if not np.isfinite(best[pi]):
+                    continue  # nothing viable: sequential fallback
+                query = queries[pi]
+                if emit_counts[pi] > p.max_num_matches:
+                    results[pi] = QueryAlignments.unaligned(query.get_sequences())
+                    continue
+                choices = []
+                for c in range(int(ebounds[pi]), int(ebounds[pi + 1])):
+                    choices.append(
+                        self._make_ungapped_pair(
+                            query, components, table, int(e_row0[c]), int(e_row1[c]),
+                            float(e_spacing[c]), float(pen0[c]), float(pen1[c]),
+                        )
                     )
-                )
-            result = QueryAlignments.single_component(query.get_sequences(), choices)
-            if (
-                take_device_pileup
-                and len(choices) == 1
-                and choices[0] is not None
-                and int(ebounds[pi + 1]) - int(ebounds[pi]) == 1
-                and e_inner[int(ebounds[pi])] >= 0  # no mate overlap on the ref
-            ):
-                c0 = int(ebounds[pi])
-                dp_rows.append(int(e_row0[c0]))
-                dp_rows.append(int(e_row1[c0]))
-                result.device_counted = True
-            results[pi] = result
+                result = QueryAlignments.single_component(query.get_sequences(), choices)
+                if (
+                    take_device_pileup
+                    and len(choices) == 1
+                    and choices[0] is not None
+                    and int(ebounds[pi + 1]) - int(ebounds[pi]) == 1
+                    and e_inner[int(ebounds[pi])] >= 0  # no mate overlap on the ref
+                ):
+                    c0 = int(ebounds[pi])
+                    dp_rows.append(int(e_row0[c0]))
+                    dp_rows.append(int(e_row1[c0]))
+                    result.device_counted = True
+                results[pi] = result
 
-        if dp_rows:
-            rows_arr = np.array(dp_rows, dtype=np.int64)
-            rid = table.read_id[rows_arr]
-            gstart = self.seq_db.starts[table.ref_seq_index[rows_arr]] + table.offset[rows_arr]
-            self.device_pileup.add_rows(
-                batch, rid, table.reversed_[rows_arr], gstart, batch.lengths[rid],
-                np.ones(rows_arr.shape[0], dtype=np.float32),
-            )
-
-        if deferred:
-            deferred = self._align_paired_deferred_native(
-                queries, components, table, combos, deferred, results
-            )
-        if len(deferred) >= 8 and os.environ.get("MAPPER_TPU_EXACT_THREADS", "1") != "0":
-            # the per-pair exact drivers are independent (own aligner, own
-            # memo; shared caches are GIL-atomic idempotent dict fills) and
-            # ~half their time is inside native local_align calls that
-            # release the GIL — two threads overlap that half
-            from concurrent.futures import ThreadPoolExecutor
-
-            def run_pair(pi):
-                return self._align_paired_pair_exact(
-                    queries[pi], components, table, combos, pi
+            if dp_rows:
+                rows_arr = np.array(dp_rows, dtype=np.int64)
+                rid = table.read_id[rows_arr]
+                gstart = self.seq_db.starts[table.ref_seq_index[rows_arr]] + table.offset[rows_arr]
+                self.device_pileup.add_rows(
+                    batch, rid, table.reversed_[rows_arr], gstart, batch.lengths[rid],
+                    np.ones(rows_arr.shape[0], dtype=np.float32),
                 )
 
-            with ThreadPoolExecutor(max_workers=2) as ex:
-                for pi, res in zip(deferred, ex.map(run_pair, deferred)):
-                    results[pi] = res
-        else:
-            for pi in deferred:
-                results[pi] = self._align_paired_pair_exact(
-                    queries[pi], components, table, combos, pi
+        with self.tracer.span("engine.pair_exact"):
+            if deferred:
+                deferred = self._align_paired_deferred_native(
+                    queries, components, table, combos, deferred, results
                 )
+            if len(deferred) >= 8 and os.environ.get("MAPPER_TPU_EXACT_THREADS", "1") != "0":
+                # the per-pair exact drivers are independent (own aligner, own
+                # memo; shared caches are GIL-atomic idempotent dict fills) and
+                # ~half their time is inside native local_align calls that
+                # release the GIL — two threads overlap that half
+                from concurrent.futures import ThreadPoolExecutor
+
+                def run_pair(pi):
+                    return self._align_paired_pair_exact(
+                        queries[pi], components, table, combos, pi
+                    )
+
+                with ThreadPoolExecutor(max_workers=2) as ex:
+                    for pi, res in zip(deferred, ex.map(run_pair, deferred)):
+                        results[pi] = res
+            else:
+                for pi in deferred:
+                    results[pi] = self._align_paired_pair_exact(
+                        queries[pi], components, table, combos, pi
+                    )
         return results
 
     def _ungapped_penalties(self, seqs, table, rows):
@@ -1266,28 +1301,15 @@ class BatchAligner:
     def _dispatch_single_end(self, queries: list[Query]):
         """Host stages + asynchronous device dispatch for one chunk; returns an
         opaque context consumed by _finish_single_end."""
-        import os
-        import time as _time
-
-        trace = os.environ.get("MAPPER_TPU_TRACE") == "1"
-        t0 = _time.time()
-
-        def mark(label):
-            nonlocal t0
-            if trace:
-                now = _time.time()
-                print(f"[engine] {label}: {now - t0:.3f}s", flush=True)
-                t0 = now
-
         p = self.parameters
-        reads = [q.get_sequence(0) for q in queries]
-        batch = ReadBatch.from_sequences(reads)
+        with self.tracer.span("engine.candidates"):
+            reads = [q.get_sequence(0) for q in queries]
+            batch = ReadBatch.from_sequences(reads)
         num_reads = batch.num_reads
         self.stats_batch_reads += num_reads
 
         band, shift = single_end_band(batch.lengths, p, self.band)
 
-        mark("setup")
         with self._stats_lock:
             self.stats_single_end_chunks += 1
 
@@ -1297,20 +1319,20 @@ class BatchAligner:
         if self._use_device_candidates():
             from mapper_tpu_torch.batch import device_candidates as _dc
 
-            fused = _dc.fused_candidates_scores(
-                batch,
-                self.database,
-                self._concat_device(),
-                p,
-                shift,
-                band,
-                max_candidates_per_read=self.max_candidates_per_read,
-                lock=self._upload_lock,
-            )
+            with self.tracer.span("engine.dispatch"):
+                fused = _dc.fused_candidates_scores(
+                    batch,
+                    self.database,
+                    self._concat_device(),
+                    p,
+                    shift,
+                    band,
+                    max_candidates_per_read=self.max_candidates_per_read,
+                    lock=self._upload_lock,
+                )
             if fused is not None:
                 with self._stats_lock:
                     self.stats_fused_chunks += 1
-                mark("fused dispatch")
                 return {
                     "queries": queries,
                     "batch": batch,
@@ -1318,14 +1340,14 @@ class BatchAligner:
                     "fused": fused[1],
                     "shift": shift,
                     "band": band,
-                    "mark": mark,
                 }
 
         # candidate voting runs on the host (native C++/numpy)
-        table = generate_candidates(
-            batch, self.database, max_candidates_per_read=self.max_candidates_per_read
-        )
-        mark(f"candidates ({len(table)})")
+        with self.tracer.span("engine.candidates"):
+            table = generate_candidates(
+                batch, self.database, max_candidates_per_read=self.max_candidates_per_read
+            )
+        self.tracer.count("rows.candidates", len(table))
         if len(table) == 0:
             return [None] * num_reads
 
@@ -1337,22 +1359,24 @@ class BatchAligner:
         # ungapped penalty, exactly as the sequential engine would decide.
         # Only the remaining rows (possible indels, contig edges) go to the
         # device, as a compacted subtable.
-        geom = self._window_geometry(batch, table, shift)
-        u_all = np.full(len(table), np.inf)
-        ic_rows = np.nonzero(geom["in_contig"])[0]
-        if ic_rows.shape[0]:
-            u_all[ic_rows] = self._ungapped_penalties(reads, table, ic_rows)
-        min_indel = min(
-            p.get_starting_insertion_start_penalty() + p.insertion_extension_penalty,
-            p.deletion_start_penalty + p.deletion_extension_penalty,
-        )
-        skip = geom["in_contig"] & ~geom["at_edge"] & (u_all <= min_indel)
-        dev_rows = np.nonzero(~skip)[0]
-        if dev_rows.shape[0]:
-            sctx = self._dispatch_scores(reads, batch, table.take(dev_rows), shift, band)
-        else:
-            sctx = None
-        mark(f"dispatch ({dev_rows.shape[0]}/{len(table)} dev rows)")
+        with self.tracer.span("engine.certificate"):
+            geom = self._window_geometry(batch, table, shift)
+            u_all = np.full(len(table), np.inf)
+            ic_rows = np.nonzero(geom["in_contig"])[0]
+            if ic_rows.shape[0]:
+                u_all[ic_rows] = self._ungapped_penalties(reads, table, ic_rows)
+            min_indel = min(
+                p.get_starting_insertion_start_penalty() + p.insertion_extension_penalty,
+                p.deletion_start_penalty + p.deletion_extension_penalty,
+            )
+            skip = geom["in_contig"] & ~geom["at_edge"] & (u_all <= min_indel)
+            dev_rows = np.nonzero(~skip)[0]
+        self.tracer.count("rows.device", dev_rows.shape[0])
+        with self.tracer.span("engine.dispatch"):
+            if dev_rows.shape[0]:
+                sctx = self._dispatch_scores(reads, batch, table.take(dev_rows), shift, band)
+            else:
+                sctx = None
         return {
             "queries": queries,
             "batch": batch,
@@ -1364,7 +1388,6 @@ class BatchAligner:
             "dev_rows": dev_rows,
             "sctx": sctx,
             "band": band,
-            "mark": mark,
         }
 
     def _window_geometry(self, batch, table, shift):
@@ -1849,19 +1872,14 @@ class BatchAligner:
         survivors = []
         probes = []  # (job, o2)
         for i, job in enumerate(jobs):
-            dbg = self._gap_debug
             st, nb_pre, blocks_pre, total_pre, aligned_pre, rs_pre = job["pre"]
             if st == -2:  # native bailed: per-read oracle decides
                 self._finalize_one_gap_job_python(job, results, best_per_read, gap_margin)
                 continue
             if st == -1:
-                if dbg is not None:
-                    dbg["align_none"] += 1
                 continue  # align() returned None
             pen = total_pre
             if pen > job["max_allowed"]:
-                if dbg is not None:
-                    dbg["over_budget"] += 1
                 continue  # _do_align's final accept check failed
             # get_best_alignments: cutoff = min(best+span, n*rate_now) with
             # rate_now tightened by align() after this (single) alignment
@@ -1869,12 +1887,8 @@ class BatchAligner:
             rate_now = new_rate if new_rate < R else R
             cutoff = min(pen + span, job["n"] * rate_now)
             if pen > cutoff:
-                if dbg is not None:
-                    dbg["choices_empty"] += 1
                 continue  # choices empty
             if abs(pen - best_per_read[job["r"]]) > gap_margin:
-                if dbg is not None:
-                    dbg["margin_mismatch"] += 1
                 continue
             nb = nb_pre
             rs = int(rs_pre)
@@ -1921,13 +1935,9 @@ class BatchAligner:
                         continue
                     if st2 == -1 or float(tot2[i]) > job["max_allowed"]:
                         job["ok"] = False  # alt is None
-                        if self._gap_debug is not None:
-                            self._gap_debug["probe_none"] += 1
                         continue
                     if float(tot2[i]) != job["pen0"]:
                         job["ok"] = False
-                        if self._gap_debug is not None:
-                            self._gap_debug["probe_penalty"] += 1
                         continue
                     rsp = int(rs2[i])
                     alt_blocks = tuple(
@@ -1936,8 +1946,6 @@ class BatchAligner:
                     )
                     if alt_blocks != job["blocks0"]:
                         job["ok"] = False
-                        if self._gap_debug is not None:
-                            self._gap_debug["probe_blocks"] += 1
 
         from mapper_tpu_torch.align.blocks import SequenceAlignment
 
@@ -1988,11 +1996,13 @@ class BatchAligner:
         queries = ctx["queries"]
         batch = ctx["batch"]
         num_reads = ctx["num_reads"]
-        mark = ctx["mark"]
 
         if "fused" in ctx:
-            table, fallback_ids, banded, ung_raw = ctx["fused"]()
-            mark("fused fetch")
+            with self.tracer.span("engine.fetch"):
+                table, fallback_ids, banded, ung_raw = ctx["fused"]()
+            # the fused program keeps and scores every candidate row
+            self.tracer.count("rows.candidates", len(table))
+            self.tracer.count("rows.device", len(table))
             # replay the device's integer window geometry in numpy
             geom = self._window_geometry(batch, table, ctx["shift"])
             valid = geom["valid"]
@@ -2023,368 +2033,373 @@ class BatchAligner:
             ungapped = np.where(ctx["skip"], pens_lookup, np.inf)
             banded = ungapped.copy()
             if ctx["sctx"] is not None:
-                d_ung, d_banded = self._finish_scores(ctx["sctx"])
+                with self.tracer.span("engine.fetch"):
+                    d_ung, d_banded = self._finish_scores(ctx["sctx"])
                 ungapped[ctx["dev_rows"]] = d_ung
                 banded[ctx["dev_rows"]] = d_banded
-        mark("scoring")
-        # wide-band gate (the single-end analog of the paired path's
-        # certified_pair): a read whose indel budget exceeds the banded
-        # window's reach could have an out-of-band indel alignment the kernel
-        # cannot see.  Any alignment the band cannot represent carries a
-        # cumulative indel length > band//2, so its penalty is at least
-        # indel_start + extension*(band//2 + 1); a read whose best in-contig
-        # ungapped penalty keeps the whole emission window strictly below
-        # that bound is sound regardless (in practice the kernel's cheap
-        # in-band insertions already defer shifted reads — this makes the
-        # argument airtight instead of probabilistic).  Others go to the
-        # exact worker.
-        band = ctx["band"]
-        max_indel_read = np.maximum(
-            0,
-            (
-                (batch.lengths * p.max_error_rate - p.deletion_start_penalty)
-                / p.deletion_extension_penalty
-            ).astype(np.int64),
-        )
-        wide = max_indel_read > band // 2
-        if np.any(wide):
-            out_band_min = min(
-                p.get_starting_insertion_start_penalty()
-                + p.insertion_extension_penalty * (band // 2 + 1),
-                p.deletion_start_penalty
-                + p.deletion_extension_penalty * (band // 2 + 1),
+        with self.tracer.span("engine.decide") as decide:
+            # wide-band gate (the single-end analog of the paired path's
+            # certified_pair): a read whose indel budget exceeds the banded
+            # window's reach could have an out-of-band indel alignment the kernel
+            # cannot see.  Any alignment the band cannot represent carries a
+            # cumulative indel length > band//2, so its penalty is at least
+            # indel_start + extension*(band//2 + 1); a read whose best in-contig
+            # ungapped penalty keeps the whole emission window strictly below
+            # that bound is sound regardless (in practice the kernel's cheap
+            # in-band insertions already defer shifted reads — this makes the
+            # argument airtight instead of probabilistic).  Others go to the
+            # exact worker.
+            band = ctx["band"]
+            max_indel_read = np.maximum(
+                0,
+                (
+                    (batch.lengths * p.max_error_rate - p.deletion_start_penalty)
+                    / p.deletion_extension_penalty
+                ).astype(np.int64),
             )
-            best_u = np.full(num_reads, np.inf)
-            np.minimum.at(best_u, table.read_id, ungapped)
-            sound = best_u + p.max_penalty_span + EPS < out_band_min
-            wide_fallback = wide & ~sound
-            if fallback_reads is None:
-                fallback_reads = wide_fallback
+            wide = max_indel_read > band // 2
+            if np.any(wide):
+                out_band_min = min(
+                    p.get_starting_insertion_start_penalty()
+                    + p.insertion_extension_penalty * (band // 2 + 1),
+                    p.deletion_start_penalty
+                    + p.deletion_extension_penalty * (band // 2 + 1),
+                )
+                best_u = np.full(num_reads, np.inf)
+                np.minimum.at(best_u, table.read_id, ungapped)
+                sound = best_u + p.max_penalty_span + EPS < out_band_min
+                wide_fallback = wide & ~sound
+                if fallback_reads is None:
+                    fallback_reads = wide_fallback
+                else:
+                    fallback_reads = fallback_reads | wide_fallback
             else:
-                fallback_reads = fallback_reads | wide_fallback
-        else:
-            wide_fallback = None
-        # --- per-read decisions (vectorized over the candidate table) ----
-        max_allowed = np.nextafter(n_per_cand * p.max_error_rate, np.inf)
-        score = np.where(valid, np.minimum(banded, ungapped), np.inf)
-        viable = score <= max_allowed + EPS
+                wide_fallback = None
+            # --- per-read decisions (vectorized over the candidate table) ----
+            max_allowed = np.nextafter(n_per_cand * p.max_error_rate, np.inf)
+            score = np.where(valid, np.minimum(banded, ungapped), np.inf)
+            viable = score <= max_allowed + EPS
 
-        order = np.argsort(table.read_id, kind="stable")
-        read_sorted = table.read_id[order]
-        score_sorted = np.where(viable, score, np.inf)[order]
-        boundaries = np.searchsorted(read_sorted, np.arange(num_reads + 1))
-        starts, ends = boundaries[:-1], boundaries[1:]
-        nonempty = starts < ends
+            order = np.argsort(table.read_id, kind="stable")
+            read_sorted = table.read_id[order]
+            score_sorted = np.where(viable, score, np.inf)[order]
+            boundaries = np.searchsorted(read_sorted, np.arange(num_reads + 1))
+            starts, ends = boundaries[:-1], boundaries[1:]
+            nonempty = starts < ends
 
-        best_per_read = np.full(num_reads, np.inf)
-        if order.shape[0]:
-            safe_starts = np.minimum(starts, order.shape[0] - 1)
-            reduced = np.minimum.reduceat(score_sorted, safe_starts)
-            best_per_read = np.where(nonempty, reduced, np.inf)
+            best_per_read = np.full(num_reads, np.inf)
+            if order.shape[0]:
+                safe_starts = np.minimum(starts, order.shape[0] - 1)
+                reduced = np.minimum.reduceat(score_sorted, safe_starts)
+                best_per_read = np.where(nonempty, reduced, np.inf)
 
-        read_max_allowed = np.nextafter(batch.lengths * p.max_error_rate, np.inf)
-        cutoff_per_read = np.minimum(
-            best_per_read + p.max_penalty_span, read_max_allowed
-        )
-        emit = viable & (score <= cutoff_per_read[table.read_id] + EPS)
-        # reads whose emit set needs anything but clean ungapped emission go to
-        # the exact path
-        bad = emit & (at_edge | (banded < ungapped - EPS))
-        bad_reads = np.zeros(num_reads, dtype=bool)
-        bad_reads[table.read_id[bad]] = True
-        emit_counts = np.bincount(table.read_id[emit], minlength=num_reads)
-
-        results: list[QueryAlignments | None] = [None] * num_reads
-
-        # ---- exact-DP finalization for isolated gapped winners ----------
-        # A read whose single emitted candidate wins with an indel only needs
-        # a traceback the banded kernel does not produce; running the
-        # sequential engine's own per-candidate driver (QueryMatchAligner
-        # .align on the voted position — identical window geometry, budgets,
-        # tie rules) yields the alignment the exact path would emit at
-        # ~1/100th of the full worker's per-read cost (the worker re-walks
-        # the pyramid in Python; BENCH.md "Hard data").  Gated to reads whose
-        # decision is robust against kernel f32 error: a unique emitted row
-        # with margin, comfortably under the accept threshold, interior to
-        # the contig, inside the certified band.
-        GAP_MARGIN = 0.05
-        reason_map: dict[int, str] = {}
-        gap_reads = bad_reads & (best_per_read <= read_max_allowed - GAP_MARGIN)
-        if fallback_reads is not None:
-            gap_reads &= ~fallback_reads
-        if np.any(gap_reads):
-            # host-scored chunks already ran the exact DP on every dev row
-            # with wave-1-identical inputs (same window, rate, prediction);
-            # map full-table row -> raw-result slot so jobs can skip wave 1
-            native_raw = None
-            full_slot = None
-            sctx0 = ctx.get("sctx")
-            if sctx0 is not None and sctx0.get("native_raw") is not None:
-                native_raw = sctx0["native_raw"]
-                dev_rows_arr = ctx["dev_rows"]
-                full_slot = {
-                    int(dev_rows_arr[sub]): slot
-                    for sub, slot in native_raw["slot_of_row"].items()
-                }
-            margin_row = viable & (
-                score <= best_per_read[table.read_id] + p.max_penalty_span + GAP_MARGIN
+            read_max_allowed = np.nextafter(batch.lengths * p.max_error_rate, np.inf)
+            cutoff_per_read = np.minimum(
+                best_per_read + p.max_penalty_span, read_max_allowed
             )
-            jobs = []
-            for r in np.nonzero(gap_reads)[0].tolist():
-                # all competitive rows must form ONE locus (same strand and
-                # contig, offsets within the indel budget of each other —
-                # an indel read's seeds legitimately vote 2+ neighboring
-                # diagonals of the same placement) with no contig-edge row
-                all_rows = order[starts[r] : ends[r]].tolist()
-                # edge candidates' kernel scores are clamped-window
-                # approximations — a within-span soft-clip alternative could
-                # hide behind an overestimate, so any edge row at all keeps
-                # the full worker path (it owns contig-edge economics)
-                if any(at_edge[rr] for rr in all_rows):
-                    reason_map[r] = "gap_edge"
-                    continue
-                rows_r = [int(rr) for rr in all_rows if margin_row[rr]]
-                if not rows_r:
-                    reason_map[r] = "gap_nomargin"
-                    continue
-                mi = int(max_indel_read[r])
-                offs = [int(table.offset[rr]) for rr in rows_r]
-                if (
-                    len({(bool(table.reversed_[rr]), int(table.ref_seq_index[rr])) for rr in rows_r}) > 1
-                    or max(offs) - min(offs) > mi
-                ):
-                    reason_map[r] = "gap_multilocus"
-                    continue
-                c = min(rows_r, key=lambda rr: (score[rr], rr))
-                seqidx = int(table.ref_seq_index[c])
-                ref, original = self._ref_and_original(seqidx)
-                if original is not ref:
-                    reason_map[r] = "gap_ancestral"
-                    continue  # ancestral rewrite: keep the full worker path
-                query = queries[r]
-                seq = query.get_sequence(0)
-                rev = bool(table.reversed_[c])
-                seq_a = seq.reverse_complement() if rev else seq
-                o = int(table.offset[c])
-                # plausible alternative predicted offsets from the OTHER vote
-                # rows of this locus (the sequential engine can vote a
-                # neighboring diagonal of the same placement); the winning
-                # alignment's own gapless-run diagonals join the set after
-                # the base alignment is known
-                locus_offsets = set()
-                for rr in all_rows:
-                    if (
-                        bool(table.reversed_[rr]) == rev
-                        and int(table.ref_seq_index[rr]) == seqidx
-                        and abs(int(table.offset[rr]) - o) <= mi
-                    ):
-                        locus_offsets.add(int(table.offset[rr]))
-                job = {
-                    "r": r,
-                    "query": query,
-                    "seq_a": seq_a,
-                    "ref": ref,
-                    "o": o,
-                    "rev": rev,
-                    "locus": locus_offsets,
-                }
-                if full_slot is not None and c in full_slot:
-                    # reuse the scoring pass's exact-DP result as wave 1 when
-                    # the wave's window geometry reproduces the scoring one
-                    # (nextUp rounding can shift max_indel by 1 in edge cases;
-                    # compare the actual window bounds)
-                    import math as _math
+            emit = viable & (score <= cutoff_per_read[table.read_id] + EPS)
+            # reads whose emit set needs anything but clean ungapped emission go to
+            # the exact path
+            bad = emit & (at_edge | (banded < ungapped - EPS))
+            bad_reads = np.zeros(num_reads, dtype=bool)
+            bad_reads[table.read_id[bad]] = True
+            emit_counts = np.bincount(table.read_id[emit], minlength=num_reads)
 
-                    slot = full_slot[c]
-                    n_j = len(seq_a)
-                    ma = _math.nextafter(n_j * p.max_error_rate, _math.inf)
-                    rate_j = ma / n_j
-                    if rate_j * n_j < ma:
-                        rate_j = _math.nextafter(rate_j, _math.inf)
-                    mi_w = int(
-                        max(
-                            0.0,
-                            (n_j * rate_j - p.deletion_start_penalty)
-                            / p.deletion_extension_penalty,
-                        )
-                    )
-                    rs_w = max(0, o - mi_w)
-                    re_w = min(o + n_j + mi_w, len(ref))
-                    if (
-                        rs_w == int(native_raw["rs"][slot])
-                        and re_w == int(native_raw["we"][slot])
-                    ):
-                        job["pre"] = (
-                            int(native_raw["status"][slot]),
-                            int(native_raw["nblocks"][slot]),
-                            native_raw["blocks"][slot],
-                            float(native_raw["total"][slot]),
-                            float(native_raw["aligned"][slot]),
-                            rs_w,
-                        )
-                jobs.append(job)
-            if jobs:
-                self._finalize_gap_jobs(jobs, results, best_per_read, GAP_MARGIN)
-        emit_sorted = emit[order]
-        eligible = nonempty & ~bad_reads & (emit_counts > 0)
-        if fallback_reads is not None:
-            eligible &= ~fallback_reads
-        # batched exact float64 penalties for every emitted row of eligible
-        # reads (one vectorized pass instead of per-read block sums)
-        rows_flat = order[emit_sorted & eligible[read_sorted]]
-        reads = [q.get_sequence(0) for q in queries]
-        if pens_lookup is not None:
-            # eligible emitted rows are in-contig (off-contig rows have
-            # infinite ungapped, so emitting them flags the read bad), and the
-            # dispatch stage already computed their exact float64 penalties
-            pens_flat = pens_lookup[rows_flat]
-        else:
-            pens_flat = self._ungapped_penalties(reads, table, rows_flat)
-        rid_flat = table.read_id[rows_flat]
-        ebounds = np.searchsorted(rid_flat, np.arange(num_reads + 1)).tolist()
+            results: list[QueryAlignments | None] = [None] * num_reads
 
-        # plain-Python views of the per-row columns (numpy scalar extraction
-        # in the loop costs more than the loop body)
-        pens_list = pens_flat.tolist()
-        rev_list = table.reversed_[rows_flat].tolist()
-        seqidx_list = table.ref_seq_index[rows_flat].tolist()
-        off_list = table.offset[rows_flat].tolist()
-        allowed_list = read_max_allowed.tolist()
-        counts_list = emit_counts.tolist()
-        max_num_matches = p.max_num_matches
-
-        dp_rid: list[int] = []
-        dp_rev: list[bool] = []
-        dp_seqidx: list[int] = []
-        dp_off: list[int] = []
-        # the CLI only attaches a DevicePileup when the run has no
-        # ancestral->original rewrite, so presence alone gates the path
-        take_device_pileup = self.device_pileup is not None
-        from mapper_tpu_torch.align.blocks import LazyUngappedAlignments
-
-        # vectorized in-contig recheck for all emitted rows (the per-row
-        # branch cost more than the loop body), plus cached per-contig
-        # (ref object, ancestral flag) lookups
-        _, _, seq_lengths_all = _tables(self.database)
-        n_flat = batch.lengths[rid_flat]
-        off_flat_arr = table.offset[rows_flat]
-        incontig_list = (
-            (off_flat_arr >= 0)
-            & (off_flat_arr + n_flat <= seq_lengths_all[table.ref_seq_index[rows_flat]])
-        ).tolist()
-        refs_cache = self._ref_objects()
-
-        materialize = self._materialize_lazy_rows
-        for r in np.nonzero(eligible)[0].tolist():
-            query = queries[r]
-            if counts_list[r] > max_num_matches:
-                results[r] = QueryAlignments.unaligned(query.get_sequences())
-                continue
-            seq = reads[r]
-            max_allowed_r = allowed_list[r]
-            rows = []
-            row_idx = []
-            ok = True
-            ancestral = False
-            for c in range(ebounds[r], ebounds[r + 1]):
-                pen = pens_list[c]
-                # float64 recheck of the device-float32 accept
-                if pen > max_allowed_r:
-                    ok = False
-                    break
-                if not incontig_list[c]:
-                    ok = False
-                    break
-                seqidx = seqidx_list[c]
-                off = off_list[c]
-                ref, is_anc = refs_cache[seqidx]
-                if is_anc:
-                    ancestral = True
-                rev = rev_list[c]
-                # dedup identical placements (different vote buckets): for
-                # full-length single-block rows the content key reduces to
-                # (reversed, contig, offset); first wins, as the eager
-                # content_key dedup did
-                if rows:
-                    dup = False
-                    for q in rows:
-                        if q[0] == rev and q[1] is ref and q[2] == off:
-                            dup = True
-                            break
-                    if dup:
+            # ---- exact-DP finalization for isolated gapped winners ----------
+            # A read whose single emitted candidate wins with an indel only needs
+            # a traceback the banded kernel does not produce; running the
+            # sequential engine's own per-candidate driver (QueryMatchAligner
+            # .align on the voted position — identical window geometry, budgets,
+            # tie rules) yields the alignment the exact path would emit at
+            # ~1/100th of the full worker's per-read cost (the worker re-walks
+            # the pyramid in Python; BENCH.md "Hard data").  Gated to reads whose
+            # decision is robust against kernel f32 error: a unique emitted row
+            # with margin, comfortably under the accept threshold, interior to
+            # the contig, inside the certified band.
+            GAP_MARGIN = 0.05
+            reason_map: dict[int, str] = {}
+            gap_reads = bad_reads & (best_per_read <= read_max_allowed - GAP_MARGIN)
+            if fallback_reads is not None:
+                gap_reads &= ~fallback_reads
+            if np.any(gap_reads):
+                # host-scored chunks already ran the exact DP on every dev row
+                # with wave-1-identical inputs (same window, rate, prediction);
+                # map full-table row -> raw-result slot so jobs can skip wave 1
+                native_raw = None
+                full_slot = None
+                sctx0 = ctx.get("sctx")
+                if sctx0 is not None and sctx0.get("native_raw") is not None:
+                    native_raw = sctx0["native_raw"]
+                    dev_rows_arr = ctx["dev_rows"]
+                    full_slot = {
+                        int(dev_rows_arr[sub]): slot
+                        for sub, slot in native_raw["slot_of_row"].items()
+                    }
+                margin_row = viable & (
+                    score <= best_per_read[table.read_id] + p.max_penalty_span + GAP_MARGIN
+                )
+                jobs = []
+                for r in np.nonzero(gap_reads)[0].tolist():
+                    # all competitive rows must form ONE locus (same strand and
+                    # contig, offsets within the indel budget of each other —
+                    # an indel read's seeds legitimately vote 2+ neighboring
+                    # diagonals of the same placement) with no contig-edge row
+                    all_rows = order[starts[r] : ends[r]].tolist()
+                    # edge candidates' kernel scores are clamped-window
+                    # approximations — a within-span soft-clip alternative could
+                    # hide behind an overestimate, so any edge row at all keeps
+                    # the full worker path (it owns contig-edge economics)
+                    if any(at_edge[rr] for rr in all_rows):
+                        reason_map[r] = "gap_edge"
                         continue
-                rows.append((rev, ref, off, pen))
-                row_idx.append(seqidx)
-            if not ok:
-                continue
-            if ancestral:
-                # ancestral->original rewrite needs sequence_b_history: keep
-                # the eager object path (rare)
-                choices = [
-                    QueryAlignment(
-                        self._make_ungapped_component(
-                            seq.reverse_complement() if rev else seq,
-                            row_idx[k],
-                            off,
-                            pen,
+                    rows_r = [int(rr) for rr in all_rows if margin_row[rr]]
+                    if not rows_r:
+                        reason_map[r] = "gap_nomargin"
+                        continue
+                    mi = int(max_indel_read[r])
+                    offs = [int(table.offset[rr]) for rr in rows_r]
+                    if (
+                        len({(bool(table.reversed_[rr]), int(table.ref_seq_index[rr])) for rr in rows_r}) > 1
+                        or max(offs) - min(offs) > mi
+                    ):
+                        reason_map[r] = "gap_multilocus"
+                        continue
+                    c = min(rows_r, key=lambda rr: (score[rr], rr))
+                    seqidx = int(table.ref_seq_index[c])
+                    ref, original = self._ref_and_original(seqidx)
+                    if original is not ref:
+                        reason_map[r] = "gap_ancestral"
+                        continue  # ancestral rewrite: keep the full worker path
+                    query = queries[r]
+                    seq = query.get_sequence(0)
+                    rev = bool(table.reversed_[c])
+                    seq_a = seq.reverse_complement() if rev else seq
+                    o = int(table.offset[c])
+                    # plausible alternative predicted offsets from the OTHER vote
+                    # rows of this locus (the sequential engine can vote a
+                    # neighboring diagonal of the same placement); the winning
+                    # alignment's own gapless-run diagonals join the set after
+                    # the base alignment is known
+                    locus_offsets = set()
+                    for rr in all_rows:
+                        if (
+                            bool(table.reversed_[rr]) == rev
+                            and int(table.ref_seq_index[rr]) == seqidx
+                            and abs(int(table.offset[rr]) - o) <= mi
+                        ):
+                            locus_offsets.add(int(table.offset[rr]))
+                    job = {
+                        "r": r,
+                        "query": query,
+                        "seq_a": seq_a,
+                        "ref": ref,
+                        "o": o,
+                        "rev": rev,
+                        "locus": locus_offsets,
+                    }
+                    if full_slot is not None and c in full_slot:
+                        # reuse the scoring pass's exact-DP result as wave 1 when
+                        # the wave's window geometry reproduces the scoring one
+                        # (nextUp rounding can shift max_indel by 1 in edge cases;
+                        # compare the actual window bounds)
+                        import math as _math
+
+                        slot = full_slot[c]
+                        n_j = len(seq_a)
+                        ma = _math.nextafter(n_j * p.max_error_rate, _math.inf)
+                        rate_j = ma / n_j
+                        if rate_j * n_j < ma:
+                            rate_j = _math.nextafter(rate_j, _math.inf)
+                        mi_w = int(
+                            max(
+                                0.0,
+                                (n_j * rate_j - p.deletion_start_penalty)
+                                / p.deletion_extension_penalty,
+                            )
                         )
+                        rs_w = max(0, o - mi_w)
+                        re_w = min(o + n_j + mi_w, len(ref))
+                        if (
+                            rs_w == int(native_raw["rs"][slot])
+                            and re_w == int(native_raw["we"][slot])
+                        ):
+                            job["pre"] = (
+                                int(native_raw["status"][slot]),
+                                int(native_raw["nblocks"][slot]),
+                                native_raw["blocks"][slot],
+                                float(native_raw["total"][slot]),
+                                float(native_raw["aligned"][slot]),
+                                rs_w,
+                            )
+                    jobs.append(job)
+                if jobs:
+                    self._finalize_gap_jobs(jobs, results, best_per_read, GAP_MARGIN)
+            emit_sorted = emit[order]
+            eligible = nonempty & ~bad_reads & (emit_counts > 0)
+            if fallback_reads is not None:
+                eligible &= ~fallback_reads
+            # batched exact float64 penalties for every emitted row of eligible
+            # reads (one vectorized pass instead of per-read block sums)
+            rows_flat = order[emit_sorted & eligible[read_sorted]]
+            reads = [q.get_sequence(0) for q in queries]
+            if pens_lookup is not None:
+                # eligible emitted rows are in-contig (off-contig rows have
+                # infinite ungapped, so emitting them flags the read bad), and the
+                # dispatch stage already computed their exact float64 penalties
+                pens_flat = pens_lookup[rows_flat]
+            else:
+                pens_flat = self._ungapped_penalties(reads, table, rows_flat)
+            rid_flat = table.read_id[rows_flat]
+            ebounds = np.searchsorted(rid_flat, np.arange(num_reads + 1)).tolist()
+
+            # plain-Python views of the per-row columns (numpy scalar extraction
+            # in the loop costs more than the loop body)
+            pens_list = pens_flat.tolist()
+            rev_list = table.reversed_[rows_flat].tolist()
+            seqidx_list = table.ref_seq_index[rows_flat].tolist()
+            off_list = table.offset[rows_flat].tolist()
+            allowed_list = read_max_allowed.tolist()
+            counts_list = emit_counts.tolist()
+            max_num_matches = p.max_num_matches
+
+            dp_rid: list[int] = []
+            dp_rev: list[bool] = []
+            dp_seqidx: list[int] = []
+            dp_off: list[int] = []
+            # the CLI only attaches a DevicePileup when the run has no
+            # ancestral->original rewrite, so presence alone gates the path
+            take_device_pileup = self.device_pileup is not None
+            from mapper_tpu_torch.align.blocks import LazyUngappedAlignments
+
+            # vectorized in-contig recheck for all emitted rows (the per-row
+            # branch cost more than the loop body), plus cached per-contig
+            # (ref object, ancestral flag) lookups
+            _, _, seq_lengths_all = _tables(self.database)
+            n_flat = batch.lengths[rid_flat]
+            off_flat_arr = table.offset[rows_flat]
+            incontig_list = (
+                (off_flat_arr >= 0)
+                & (off_flat_arr + n_flat <= seq_lengths_all[table.ref_seq_index[rows_flat]])
+            ).tolist()
+            refs_cache = self._ref_objects()
+
+            materialize = self._materialize_lazy_rows
+            for r in np.nonzero(eligible)[0].tolist():
+                query = queries[r]
+                if counts_list[r] > max_num_matches:
+                    results[r] = QueryAlignments.unaligned(query.get_sequences())
+                    continue
+                seq = reads[r]
+                max_allowed_r = allowed_list[r]
+                rows = []
+                row_idx = []
+                ok = True
+                ancestral = False
+                for c in range(ebounds[r], ebounds[r + 1]):
+                    pen = pens_list[c]
+                    # float64 recheck of the device-float32 accept
+                    if pen > max_allowed_r:
+                        ok = False
+                        break
+                    if not incontig_list[c]:
+                        ok = False
+                        break
+                    seqidx = seqidx_list[c]
+                    off = off_list[c]
+                    ref, is_anc = refs_cache[seqidx]
+                    if is_anc:
+                        ancestral = True
+                    rev = rev_list[c]
+                    # dedup identical placements (different vote buckets): for
+                    # full-length single-block rows the content key reduces to
+                    # (reversed, contig, offset); first wins, as the eager
+                    # content_key dedup did
+                    if rows:
+                        dup = False
+                        for q in rows:
+                            if q[0] == rev and q[1] is ref and q[2] == off:
+                                dup = True
+                                break
+                        if dup:
+                            continue
+                    rows.append((rev, ref, off, pen))
+                    row_idx.append(seqidx)
+                if not ok:
+                    continue
+                if ancestral:
+                    # ancestral->original rewrite needs sequence_b_history: keep
+                    # the eager object path (rare)
+                    choices = [
+                        QueryAlignment(
+                            self._make_ungapped_component(
+                                seq.reverse_complement() if rev else seq,
+                                row_idx[k],
+                                off,
+                                pen,
+                            )
+                        )
+                        for k, (rev, _ref, off, pen) in enumerate(rows)
+                    ]
+                    result = QueryAlignments.single_component(
+                        query.get_sequences(), choices
                     )
-                    for k, (rev, _ref, off, pen) in enumerate(rows)
-                ]
-                result = QueryAlignments.single_component(
-                    query.get_sequences(), choices
+                else:
+                    result = LazyUngappedAlignments(
+                        query.get_sequences(), rows, materialize
+                    )
+                if take_device_pileup and len(rows) == 1:
+                    # weight-1.0 clean ungapped emission: count it on the device
+                    # (exact in f32; see batch/device_pileup.py) and flag the
+                    # result so MatchDatabase skips its host accumulation
+                    c0 = ebounds[r]
+                    dp_rid.append(r)
+                    dp_rev.append(rev_list[c0])
+                    dp_seqidx.append(seqidx_list[c0])
+                    dp_off.append(off_list[c0])
+                    result.device_counted = True
+                results[r] = result
+            if dp_rid:
+                rid_arr = np.array(dp_rid, dtype=np.int64)
+                gstart = self.seq_db.starts[np.array(dp_seqidx, dtype=np.int64)] + np.array(
+                    dp_off, dtype=np.int64
                 )
-            else:
-                result = LazyUngappedAlignments(
-                    query.get_sequences(), rows, materialize
+                self.device_pileup.add_rows(
+                    batch, rid_arr, np.array(dp_rev, dtype=bool), gstart, batch.lengths[rid_arr],
+                    np.ones(len(dp_rid), dtype=np.float32),
                 )
-            if take_device_pileup and len(rows) == 1:
-                # weight-1.0 clean ungapped emission: count it on the device
-                # (exact in f32; see batch/device_pileup.py) and flag the
-                # result so MatchDatabase skips its host accumulation
-                c0 = ebounds[r]
-                dp_rid.append(r)
-                dp_rev.append(rev_list[c0])
-                dp_seqidx.append(seqidx_list[c0])
-                dp_off.append(off_list[c0])
-                result.device_counted = True
-            results[r] = result
-        if dp_rid:
-            rid_arr = np.array(dp_rid, dtype=np.int64)
-            gstart = self.seq_db.starts[np.array(dp_seqidx, dtype=np.int64)] + np.array(
-                dp_off, dtype=np.int64
-            )
-            self.device_pileup.add_rows(
-                batch, rid_arr, np.array(dp_rev, dtype=bool), gstart, batch.lengths[rid_arr],
-                np.ones(len(dp_rid), dtype=np.float32),
-            )
-        # classify every read the batch path could not resolve (results[r] is
-        # None -> the exact sequential worker owns it); counts feed
-        # stats_fallback_reasons for perf diagnosis
-        counts: dict[str, int] = {}
-        for r in range(num_reads):
-            if results[r] is not None:
-                continue
-            if r in reason_map:
-                reason = reason_map[r]
-            elif fused_mask is not None and fused_mask[r]:
-                reason = "kernel_bail"
-            elif wide_fallback is not None and wide_fallback[r]:
-                reason = "wide_band"
-            elif bad_reads[r]:
-                reason = "gap_dp_fail" if gap_reads[r] else "gap_margin"
-            elif not nonempty[r]:
-                reason = "no_rows"
-            elif emit_counts[r] == 0:
-                reason = "no_viable"
-            else:
-                reason = "recheck_fail"
-            counts[reason] = counts.get(reason, 0) + 1
-        with self._stats_lock:  # pool threads share the engine
-            reasons = self.stats_fallback_reasons
-            for reason, c in counts.items():
-                reasons[reason] = reasons.get(reason, 0) + c
-        mark("decisions+emit")
+            # classify every read the batch path could not resolve (results[r] is
+            # None -> the exact sequential worker owns it); counts feed
+            # stats_fallback_reasons for perf diagnosis
+            counts: dict[str, int] = {}
+            for r in range(num_reads):
+                if results[r] is not None:
+                    continue
+                if r in reason_map:
+                    reason = reason_map[r]
+                elif fused_mask is not None and fused_mask[r]:
+                    reason = "kernel_bail"
+                elif wide_fallback is not None and wide_fallback[r]:
+                    reason = "wide_band"
+                elif bad_reads[r]:
+                    reason = "gap_dp_fail" if gap_reads[r] else "gap_margin"
+                elif not nonempty[r]:
+                    reason = "no_rows"
+                elif emit_counts[r] == 0:
+                    reason = "no_viable"
+                else:
+                    reason = "recheck_fail"
+                counts[reason] = counts.get(reason, 0) + 1
+            with self._stats_lock:  # pool threads share the engine
+                reasons = self.stats_fallback_reasons
+                for reason, c in counts.items():
+                    reasons[reason] = reasons.get(reason, 0) + c
+            if self.tracer.on:
+                for reason, c in counts.items():
+                    self.tracer.count(f"fallback.{reason}", c)
+        if self.print_decide_seconds:
+            print(f"[engine] decisions+emit: {decide.seconds:.3f}s", flush=True)
         return results
 
 

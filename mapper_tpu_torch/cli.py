@@ -31,6 +31,7 @@ import sys
 import threading
 import time
 
+from mapper_tpu_torch import trace
 from mapper_tpu_torch.align.cache import AlignmentCache
 from mapper_tpu_torch.align.params import AlignmentParameters
 from mapper_tpu_torch.align.worker import AlignerWorker
@@ -103,6 +104,29 @@ def _parse_threshold_subflags(args: list[str], i: int, params: MutationDetection
 
 
 def main(argv: list[str] | None = None) -> int:
+    """Runs the CLI.  With `MAPPER_TPU_TRACE=1` the run's spans and counters
+    (`trace.py`) go to standard error as one `[trace]` line when it ends,
+    however it ends."""
+    tracer = trace.recorder()
+    launches = _launch_counts() if tracer.on else None
+    try:
+        with tracer.span("cli.main"):
+            return _main(argv, tracer)
+    finally:
+        if tracer.on:
+            for name, n in _launch_counts().items():
+                if n != launches.get(name, 0):
+                    tracer.count(f"launches.{name}", n - launches.get(name, 0))
+        tracer.export(sys.stderr)
+
+
+def _launch_counts() -> dict[str, int]:
+    from mapper_tpu_torch.align import kernels
+
+    return dict(kernels.LAUNCHES)
+
+
+def _main(argv: list[str] | None, tracer) -> int:
     start_time = time.time()
     args = list(sys.argv[1:] if argv is None else argv)
 
@@ -393,6 +417,7 @@ def main(argv: list[str] | None = None) -> int:
         enable_gapmers=enable_gapmers,
         verify_consistent_database=verify_consistent_database,
         start_time=start_time,
+        tracer=tracer,
     )
 
 
@@ -440,6 +465,7 @@ def run(
     alignment_verbosity=0,
     reference_verbosity=0,
     auto_verbose=False,
+    tracer=trace.OFF,
 ) -> int:
     from mapper_tpu_torch.logging import BufferedWriter, Logger, StderrWriter
 
@@ -485,187 +511,191 @@ def run(
     def shard_path(base: str, k: int) -> str:
         return f"{base}.shard{k}"
 
-    log("Loading reference")
-    reference_provider = fastx.load_from(reference_paths, keep_quality=False)
-    sorted_reference = sort_and_complement(b.build() for b in reference_provider)
-    sequence_database = SequenceDatabase(sorted_reference)
-    if not allow_duplicate_contig_names:
-        duplicates = sequence_database.get_duplicate_names()
-        if duplicates:
-            log(
-                f" Warning: {len(duplicates)} contig names appear multiple times, "
-                f"including {duplicates[0]}. Add --allow-duplicate-contig-names to continue"
-            )
-            return 1
-
-    queries = QueriesIterator(query_providers)
-    dir_cache = DirCache(cache_dir) if cache_dir else None
-    min_dup = choose_min_duplication_length(sequence_database)
-    max_dup = choose_max_duplication_length(sequence_database)
-
-    if guess_reference_ancestors:
-        from mapper_tpu_torch.index.ancestry import AncestryDetector
-
-        original_db = HashBlockDatabase(
-            sequence_database,
-            min_interesting_size=min_dup,
-            hint_max_interesting_size=max_dup,
-            max_num_short_matches=8,
-            enable_gapmers=enable_gapmers,
-            cache_dir=dir_cache,
-            logger=reference_logger,
-        )
-        if verify_consistent_database:
-            original_db.verify_matches(
-                HashBlockDatabase(
-                    sequence_database,
-                    min_interesting_size=min_dup,
-                    hint_max_interesting_size=max_dup,
-                    max_num_short_matches=8,
-                    enable_gapmers=enable_gapmers,
+    with tracer.span("cli.reference"):
+        log("Loading reference")
+        reference_provider = fastx.load_from(reference_paths, keep_quality=False)
+        sorted_reference = sort_and_complement(b.build() for b in reference_provider)
+        sequence_database = SequenceDatabase(sorted_reference)
+        if not allow_duplicate_contig_names:
+            duplicates = sequence_database.get_duplicate_names()
+            if duplicates:
+                log(
+                    f" Warning: {len(duplicates)} contig names appear multiple times, "
+                    f"including {duplicates[0]}. Add --allow-duplicate-contig-names to continue"
                 )
+                return 1
+
+    with tracer.span("cli.index"):
+        queries = QueriesIterator(query_providers)
+        dir_cache = DirCache(cache_dir) if cache_dir else None
+        min_dup = choose_min_duplication_length(sequence_database)
+        max_dup = choose_max_duplication_length(sequence_database)
+
+        if guess_reference_ancestors:
+            from mapper_tpu_torch.index.ancestry import AncestryDetector
+
+            original_db = HashBlockDatabase(
+                sequence_database,
+                min_interesting_size=min_dup,
+                hint_max_interesting_size=max_dup,
+                max_num_short_matches=8,
+                enable_gapmers=enable_gapmers,
+                cache_dir=dir_cache,
+                logger=reference_logger,
             )
-        ancestry_dups = DuplicationDetector(
-            original_db, min_dup, max_dup, min_num_interesting_copies=3, window_size=1
-        )
-        dissimilarity = parameters.max_error_rate / parameters.mutation_penalty
-        provider = AncestryDetector(
-            ancestry_dups, sorted_reference, dissimilarity, out_ancestor_path
-        )
-        hashblock_database = provider.get_hashblock_database()
-        reference_index = ReferenceIndex(sequence_database, hashblock_database, None)
-        reference_index.get_original_sequence = provider.get_original_sequence
-    else:
-        hashblock_database = HashBlockDatabase(
-            sequence_database,
-            hint_max_interesting_size=max_dup,
-            enable_gapmers=enable_gapmers,
-            cache_dir=dir_cache,
-            logger=reference_logger,
-        )
-        if verify_consistent_database:
-            log("Verifying database consistency (double build)")
-            hashblock_database.verify_matches(
-                HashBlockDatabase(
-                    sequence_database,
-                    hint_max_interesting_size=max_dup,
-                    enable_gapmers=enable_gapmers,
+            if verify_consistent_database:
+                original_db.verify_matches(
+                    HashBlockDatabase(
+                        sequence_database,
+                        min_interesting_size=min_dup,
+                        hint_max_interesting_size=max_dup,
+                        max_num_short_matches=8,
+                        enable_gapmers=enable_gapmers,
+                    )
                 )
+            ancestry_dups = DuplicationDetector(
+                original_db, min_dup, max_dup, min_num_interesting_copies=3, window_size=1
             )
-        reference_index = ReferenceIndex(sequence_database, hashblock_database, None)
-
-    if os.environ.get("MAPPER_TPU_TRACE") == "1":
-        log(f"[cli] reference index ready: {time.time() - start_time:.1f}s")
-    approximate_dups = DuplicationDetector(
-        hashblock_database,
-        min_dup,
-        max_dup,
-        min_num_interesting_copies=2,
-        window_size=1000,
-    )
-    reference_index.duplication_detector = approximate_dups
-    # run the hash-bin duplication scan (seconds on a 4.6 Mb reference) on a
-    # background thread: it overlaps query-provider setup and the engine's
-    # creation; the batch loop joins it before the first alignment, and a
-    # failure in it is raised there
-    dup_errors: list[Exception] = []
-
-    def detect_duplications():
-        try:
-            approximate_dups.ensure_detected()
-        except Exception as e:  # raised on the main thread after join()
-            dup_errors.append(e)
-
-    dup_thread = threading.Thread(target=detect_duplications, daemon=True)
-    dup_thread.start()
-
-    listeners = []
-    match_database = MatchDatabase(query_end_fraction)
-    match_database.set_contig_order(sequence_database.get_all())
-    refs_counter = ReferenceAlignmentCounter()
-    if out_refs_map_count_path is not None:
-        listeners.append(refs_counter)
-    match_counter = AlignmentCounter()
-    if out_vcf_path is not None or out_mutations_path is not None:
-        listeners.append(match_database)
-    penalty_summarizer = PenaltySummarizer(parameters)
-    listeners.append(penalty_summarizer)
-    indel_summarizer = IndelSummarizer()
-    listeners.append(indel_summarizer)
-    sam_writer = None
-    sam_stream = None
-    sam_shard = None
-    if out_sam_path is not None:
-        contains_paired = queries.get_contains_paired_end_reads()
-        if distributed:
-            sam_shard = multihost.ShardedResultWriter(
-                lambda stream: SamWriter(sequence_database, stream, contains_paired)
+            dissimilarity = parameters.max_error_rate / parameters.mutation_penalty
+            provider = AncestryDetector(
+                ancestry_dups, sorted_reference, dissimilarity, out_ancestor_path
             )
-            listeners.append(sam_shard)
+            hashblock_database = provider.get_hashblock_database()
+            reference_index = ReferenceIndex(sequence_database, hashblock_database, None)
+            reference_index.get_original_sequence = provider.get_original_sequence
         else:
-            sam_stream = sys.stdout if out_sam_path == "-" else open(out_sam_path, "wt")
-            sam_writer = SamWriter(sequence_database, sam_stream, contains_paired)
-            listeners.append(sam_writer)
-    unaligned_writer = None
-    unaligned_shard = None
-    if out_unaligned_path is not None:
-        if distributed:
-            # the JAX CLI leaves one unaligned file per process; the port
-            # merges them in global query order like the SAM shards
-            unaligned_shard = multihost.ShardedResultWriter(
-                lambda stream: UnalignedQueryWriter(
-                    out_unaligned_path, queries.all_reads_contain_quality_information(), stream
+            hashblock_database = HashBlockDatabase(
+                sequence_database,
+                hint_max_interesting_size=max_dup,
+                enable_gapmers=enable_gapmers,
+                cache_dir=dir_cache,
+                logger=reference_logger,
+            )
+            if verify_consistent_database:
+                log("Verifying database consistency (double build)")
+                hashblock_database.verify_matches(
+                    HashBlockDatabase(
+                        sequence_database,
+                        hint_max_interesting_size=max_dup,
+                        enable_gapmers=enable_gapmers,
+                    )
                 )
-            )
-            listeners.append(unaligned_shard)
-        else:
-            unaligned_writer = UnalignedQueryWriter(
-                out_unaligned_path, queries.all_reads_contain_quality_information()
-            )
-            listeners.append(unaligned_writer)
-    listeners.append(match_counter)
+            reference_index = ReferenceIndex(sequence_database, hashblock_database, None)
 
-    if distributed:
-        queries = multihost.RoundRobinQueries(queries, process_id, num_processes)
-
-    cache = AlignmentCache()
-    worker = AlignerWorker(reference_index, parameters, listeners, cache)
-    if engine == "batch":
-        from mapper_tpu_torch.batch.engine import BatchAligner
-
-        if mesh is not None:
-            log(f"Sharding candidate scoring over {len(mesh)} devices")
-        engine_obj = BatchAligner(
-            reference_index, parameters, device, listeners=listeners, mesh=mesh
+    with tracer.span("cli.engine"):
+        approximate_dups = DuplicationDetector(
+            hashblock_database,
+            min_dup,
+            max_dup,
+            min_num_interesting_copies=2,
+            window_size=1000,
         )
-        engine_obj.fallback_worker = AlignerWorker(reference_index, parameters)
-        # the engine probes/stores the cache at chunk intake (covering the
-        # batch fast path, not just worker fallbacks); the inner worker runs
-        # cache-less so hits/stores are not double-counted
-        engine_obj.cache = cache
-        worker_stats = engine_obj.fallback_worker.stats
-        # device-side pileup (opt-in): clean emissions are added into
-        # accumulators on the engine's device per chunk (Mapper.java:760-784)
-        if (
-            os.environ.get("MAPPER_TPU_DEVICE_PILEUP") == "1"
-            and (out_vcf_path is not None or out_mutations_path is not None)
-            and not guess_reference_ancestors
-        ):
-            from mapper_tpu_torch.batch.device_pileup import DevicePileup
+        reference_index.duplication_detector = approximate_dups
+        # run the hash-bin duplication scan (seconds on a 4.6 Mb reference) on a
+        # background thread: it overlaps query-provider setup and the engine's
+        # creation; the batch loop joins it before the first alignment, and a
+        # failure in it is raised there
+        dup_errors: list[Exception] = []
 
+        def detect_duplications():
             try:
-                engine_obj.device_pileup = DevicePileup(
-                    sequence_database, query_end_fraction, device, mesh=mesh
+                with tracer.span("cli.dup_scan"):
+                    approximate_dups.ensure_detected()
+            except Exception as e:  # raised on the main thread after join()
+                dup_errors.append(e)
+
+        dup_thread = threading.Thread(target=detect_duplications, name="duplication-scan", daemon=True)
+        dup_thread.start()
+
+        listeners = []
+        match_database = MatchDatabase(query_end_fraction)
+        match_database.set_contig_order(sequence_database.get_all())
+        refs_counter = ReferenceAlignmentCounter()
+        if out_refs_map_count_path is not None:
+            listeners.append(refs_counter)
+        match_counter = AlignmentCounter()
+        if out_vcf_path is not None or out_mutations_path is not None:
+            listeners.append(match_database)
+        penalty_summarizer = PenaltySummarizer(parameters)
+        listeners.append(penalty_summarizer)
+        indel_summarizer = IndelSummarizer()
+        listeners.append(indel_summarizer)
+        sam_writer = None
+        sam_stream = None
+        sam_shard = None
+        if out_sam_path is not None:
+            contains_paired = queries.get_contains_paired_end_reads()
+            if distributed:
+                sam_shard = multihost.ShardedResultWriter(
+                    lambda stream: SamWriter(sequence_database, stream, contains_paired)
                 )
-            except ValueError as e:
-                log(f"Device pileup not taken, the pileup stays on the host: {e}")
-    else:
-        engine_obj = worker
-        worker_stats = worker.stats
+                listeners.append(sam_shard)
+            else:
+                sam_stream = sys.stdout if out_sam_path == "-" else open(out_sam_path, "wt")
+                sam_writer = SamWriter(sequence_database, sam_stream, contains_paired)
+                listeners.append(sam_writer)
+        unaligned_writer = None
+        unaligned_shard = None
+        if out_unaligned_path is not None:
+            if distributed:
+                # the JAX CLI leaves one unaligned file per process; the port
+                # merges them in global query order like the SAM shards
+                unaligned_shard = multihost.ShardedResultWriter(
+                    lambda stream: UnalignedQueryWriter(
+                        out_unaligned_path, queries.all_reads_contain_quality_information(), stream
+                    )
+                )
+                listeners.append(unaligned_shard)
+            else:
+                unaligned_writer = UnalignedQueryWriter(
+                    out_unaligned_path, queries.all_reads_contain_quality_information()
+                )
+                listeners.append(unaligned_writer)
+        listeners.append(match_counter)
+
+        if distributed:
+            queries = multihost.RoundRobinQueries(queries, process_id, num_processes)
+
+        cache = AlignmentCache()
+        worker = AlignerWorker(reference_index, parameters, listeners, cache)
+        if engine == "batch":
+            from mapper_tpu_torch.batch.engine import BatchAligner
+
+            if mesh is not None:
+                log(f"Sharding candidate scoring over {len(mesh)} devices")
+            engine_obj = BatchAligner(
+                reference_index, parameters, device, listeners=listeners, mesh=mesh
+            )
+            engine_obj.fallback_worker = AlignerWorker(reference_index, parameters)
+            # the engine probes/stores the cache at chunk intake (covering the
+            # batch fast path, not just worker fallbacks); the inner worker runs
+            # cache-less so hits/stores are not double-counted
+            engine_obj.cache = cache
+            worker_stats = engine_obj.fallback_worker.stats
+            engine_obj.tracer = tracer
+            # the engine's old stdout line, which the benchmark's
+            # engine.decisions_ms_per_kread reads; never into a SAM on stdout
+            engine_obj.print_decide_seconds = tracer.on and out_sam_path != "-"
+            # device-side pileup (opt-in): clean emissions are added into
+            # accumulators on the engine's device per chunk (Mapper.java:760-784)
+            if (
+                os.environ.get("MAPPER_TPU_DEVICE_PILEUP") == "1"
+                and (out_vcf_path is not None or out_mutations_path is not None)
+                and not guess_reference_ancestors
+            ):
+                from mapper_tpu_torch.batch.device_pileup import DevicePileup
+
+                try:
+                    engine_obj.device_pileup = DevicePileup(
+                        sequence_database, query_end_fraction, device, mesh=mesh
+                    )
+                except ValueError as e:
+                    log(f"Device pileup not taken, the pileup stays on the host: {e}")
+        else:
+            engine_obj = worker
+            worker_stats = worker.stats
 
     num_loaded = 0
-    batch: list = []
-    batch_bases = 0
     # the reference batches 50 kb per worker thread (Mapper.java:926); the
     # batch engine amortizes per-launch cost over much larger batches and
     # pipelines two batches so host candidate generation overlaps device
@@ -677,7 +707,8 @@ def run(
     from concurrent.futures import ThreadPoolExecutor
 
     if reference_index.duplication_detector is not None:
-        dup_thread.join()  # detection complete before any worker consults it
+        with tracer.span("cli.dup_wait"):
+            dup_thread.join()  # detection complete before any worker consults it
         if dup_errors:
             raise dup_errors[0]
 
@@ -685,7 +716,7 @@ def run(
     # worker-count knob, Mapper.java:154); two is the floor so host candidate
     # generation always overlaps device scoring
     pool_workers = max(2, min(int(num_threads), 16))
-    pool = ThreadPoolExecutor(max_workers=pool_workers)
+    pool = ThreadPoolExecutor(max_workers=pool_workers, thread_name_prefix="batch")
     pending: deque = deque()
 
     # verbose alignment tracing: each chunk logs into a BufferedWriter
@@ -711,20 +742,25 @@ def run(
                 engine_obj.fallback_worker.set_logger(chunk_logger)
             else:
                 engine_obj.set_logger(chunk_logger)
+        # the batch's id, shared by its spans on the main and pool threads
+        batch_id = chunk_counter
         chunk_counter += 1
+        ids = {"batch_id": batch_id} if engine == "batch" else {}
         pending.append(
-            (pool.submit(engine_obj.process_batch, chunk_batch, notify=False), writer)
+            (pool.submit(engine_obj.process_batch, chunk_batch, notify=False, **ids), writer, batch_id)
         )
 
     def drain(limit: int) -> None:
         nonlocal last_report
         while len(pending) > limit:
-            future, writer = pending.popleft()
-            results = future.result()
+            future, writer, batch_id = pending.popleft()
+            with tracer.span("cli.wait", batch=batch_id):
+                results = future.result()
             if writer is not None:
                 writer.flush()
-            for listener in listeners:
-                listener.add_alignments(results)
+            with tracer.span("cli.listeners", batch=batch_id):
+                for listener in listeners:
+                    listener.add_alignments(results)
             now = time.time()
             if now - last_report >= 1.0:
                 elapsed = now - start_time
@@ -732,25 +768,38 @@ def run(
                 log(f"Processing query {num_loaded} at {elapsed:.0f}s ({rate:.0f} q/s)")
                 last_report = now
 
+    def read_batches():
+        """The queries, parsed, in batches of `max_bases_per_batch` bases."""
+        nonlocal num_loaded
+        batch, batch_bases = [], 0
+        for query_builder in queries:
+            num_loaded += 1
+            if not distributed:  # RoundRobinQueries already set the global id
+                query_builder.set_id(num_loaded)
+            batch.append(query_builder.build())
+            batch_bases += batch[-1].get_length()
+            if batch_bases >= max_bases_per_batch:
+                yield batch
+                batch, batch_bases = [], 0
+        if batch:
+            yield batch
+
     # the align phase: from the first query read to the last result
     # delivered (query parsing included; index build and set-up excluded)
     align_start = time.time()
-    for query_builder in queries:
-        num_loaded += 1
-        if not distributed:  # RoundRobinQueries already set the global id
-            query_builder.set_id(num_loaded)
-        batch.append(query_builder.build())
-        batch_bases += batch[-1].get_length()
-        if batch_bases >= max_bases_per_batch:
-            submit_batch(batch)
-            batch, batch_bases = [], 0
+    with tracer.span("cli.align"):
+        batches = read_batches()
+        while True:
+            with tracer.span("cli.parse", batch=chunk_counter):
+                chunk_batch = next(batches, None)
+            if chunk_batch is None:
+                break
+            submit_batch(chunk_batch)
             # verbose runs serialize chunks (shared chunk logger); otherwise
             # keep at most two batches in flight
             drain(0 if verbose_alignment else pool_workers - 1)
-    if batch:
-        submit_batch(batch)
-    drain(0)
-    pool.shutdown()
+        drain(0)
+        pool.shutdown()
     log(f"Aligned {num_loaded} queries at {time.time() - start_time:.0f}s")
     align_seconds = time.time() - align_start
     log(
@@ -768,83 +817,88 @@ def run(
 
     device_pileup = getattr(engine_obj, "device_pileup", None)
     if device_pileup is not None:
-        device_pileup.merge_into(match_database)
-        log(f"Device pileup: {device_pileup.num_rows_accumulated} rows counted on the device")
+        with tracer.span("cli.pileup"):
+            device_pileup.merge_into(match_database)
+            log(f"Device pileup: {device_pileup.num_rows_accumulated} rows counted on the device")
 
     needs_pileup = out_vcf_path is not None or out_mutations_path is not None
     if distributed:
-        # cross-process merge (parallel/multihost.py): every process saves its
-        # shards and a done marker; process 0 waits and merges in global order
-        if sam_shard is not None:
-            sam_shard.save_shard(shard_path(out_sam_path, process_id) + ".pkl")
-        if unaligned_shard is not None:
-            unaligned_shard.save_shard(shard_path(out_unaligned_path, process_id) + ".pkl")
-        if process_id != 0:
+        with tracer.span("cli.write"):
+            # cross-process merge (parallel/multihost.py): every process saves its
+            # shards and a done marker; process 0 waits and merges in global order
+            if sam_shard is not None:
+                sam_shard.save_shard(shard_path(out_sam_path, process_id) + ".pkl")
+            if unaligned_shard is not None:
+                unaligned_shard.save_shard(shard_path(out_unaligned_path, process_id) + ".pkl")
+            if process_id != 0:
+                if needs_pileup:
+                    base = out_vcf_path or out_mutations_path
+                    multihost.save_pileup_shard(
+                        match_database, shard_path(base, process_id) + ".pkl"
+                    )
+                if out_refs_map_count_path is not None:
+                    _save_refs_counts(
+                        refs_counter, shard_path(out_refs_map_count_path, process_id) + ".pkl"
+                    )
+            marker_base = (
+                out_sam_path or out_vcf_path or out_mutations_path or out_unaligned_path
+                or out_refs_map_count_path
+            )
+            if marker_base is not None:
+                with open(shard_path(marker_base, process_id) + ".done", "w") as f:
+                    f.write("done\n")
+            if coordinator:
+                multihost.barrier("mapper_tpu_outputs")
+            if process_id != 0:
+                log(f"Process {process_id} done (shards saved; process 0 merges)")
+                return 0
+            # process 0: wait for every shard, then merge
+            markers = []
+            if marker_base is not None:
+                markers = [shard_path(marker_base, k) + ".done" for k in range(num_processes)]
+                multihost.wait_for_files(markers[1:])
+            merged = []
+            if sam_shard is not None:
+                sam_stream = sys.stdout if out_sam_path == "-" else open(out_sam_path, "wt")
+                shards = [shard_path(out_sam_path, k) + ".pkl" for k in range(num_processes)]
+                multihost.merge_sam_shards(shards, sam_stream)
+                merged += shards
+            if unaligned_shard is not None:
+                shards = [shard_path(out_unaligned_path, k) + ".pkl" for k in range(num_processes)]
+                with open(out_unaligned_path, "wt", encoding="ascii") as stream:
+                    multihost.merge_sam_shards(shards, stream)
+                merged += shards
             if needs_pileup:
                 base = out_vcf_path or out_mutations_path
-                multihost.save_pileup_shard(
-                    match_database, shard_path(base, process_id) + ".pkl"
-                )
+                shards = [shard_path(base, k) + ".pkl" for k in range(1, num_processes)]
+                multihost.merge_pileup_shards(match_database, shards)
+                merged += shards
             if out_refs_map_count_path is not None:
-                _save_refs_counts(
-                    refs_counter, shard_path(out_refs_map_count_path, process_id) + ".pkl"
-                )
-        marker_base = (
-            out_sam_path or out_vcf_path or out_mutations_path or out_unaligned_path
-            or out_refs_map_count_path
-        )
-        if marker_base is not None:
-            with open(shard_path(marker_base, process_id) + ".done", "w") as f:
-                f.write("done\n")
-        if coordinator:
-            multihost.barrier("mapper_tpu_outputs")
-        if process_id != 0:
-            log(f"Process {process_id} done (shards saved; process 0 merges)")
-            return 0
-        # process 0: wait for every shard, then merge
-        markers = []
-        if marker_base is not None:
-            markers = [shard_path(marker_base, k) + ".done" for k in range(num_processes)]
-            multihost.wait_for_files(markers[1:])
-        merged = []
-        if sam_shard is not None:
-            sam_stream = sys.stdout if out_sam_path == "-" else open(out_sam_path, "wt")
-            shards = [shard_path(out_sam_path, k) + ".pkl" for k in range(num_processes)]
-            multihost.merge_sam_shards(shards, sam_stream)
-            merged += shards
-        if unaligned_shard is not None:
-            shards = [shard_path(out_unaligned_path, k) + ".pkl" for k in range(num_processes)]
-            with open(out_unaligned_path, "wt", encoding="ascii") as stream:
-                multihost.merge_sam_shards(shards, stream)
-            merged += shards
-        if needs_pileup:
-            base = out_vcf_path or out_mutations_path
-            shards = [shard_path(base, k) + ".pkl" for k in range(1, num_processes)]
-            multihost.merge_pileup_shards(match_database, shards)
-            merged += shards
-        if out_refs_map_count_path is not None:
-            shards = [shard_path(out_refs_map_count_path, k) + ".pkl" for k in range(1, num_processes)]
-            for path in shards:
-                _merge_refs_counts(refs_counter, path)
-            merged += shards
-        # the shards and markers belong to this run: a later run into the
-        # same paths must wait for its own, not merge these
-        for path in merged + markers:
-            os.remove(path)
+                shards = [shard_path(out_refs_map_count_path, k) + ".pkl" for k in range(1, num_processes)]
+                for path in shards:
+                    _merge_refs_counts(refs_counter, path)
+                merged += shards
+            # the shards and markers belong to this run: a later run into the
+            # same paths must wait for its own, not merge these
+            for path in merged + markers:
+                os.remove(path)
 
     if out_refs_map_count_path is not None:
-        refs_counter.sum_alignments(out_refs_map_count_path)
-        log(f"Saved {out_refs_map_count_path}")
+        with tracer.span("cli.write"):
+            refs_counter.sum_alignments(out_refs_map_count_path)
+            log(f"Saved {out_refs_map_count_path}")
     display_coverage = None
     if out_vcf_path is not None:
         t_pileup = time.time()
-        pileups = match_database.group_by_position()
-        writer = VcfWriter(out_vcf_path, vcf_include_non_mutations, vcf_filter, vcf_show_support_read)
-        writer.write(pileups, num_threads)
-        log(
-            f"Saved {out_vcf_path}"
-            f" (pileup+write {time.time() - t_pileup:.0f}s)"
-        )
+        with tracer.span("cli.pileup"):
+            pileups = match_database.group_by_position()
+        with tracer.span("cli.write"):
+            writer = VcfWriter(out_vcf_path, vcf_include_non_mutations, vcf_filter, vcf_show_support_read)
+            writer.write(pileups, num_threads)
+            log(
+                f"Saved {out_vcf_path}"
+                f" (pileup+write {time.time() - t_pileup:.0f}s)"
+            )
         matched = writer.get_num_reference_positions_matched()
         total = sequence_database.get_total_forward_size()
         coverage = matched / total if total else 0.0
@@ -855,105 +909,108 @@ def run(
             f" Coverage                      : {text} of the reference ({matched}/{total}) was matched"
         )
     if out_mutations_path is not None:
-        pileups = match_database.group_by_position()
-        writer = MutationsWriter(out_mutations_path, mutation_filter)
-        writer.write(pileups, num_threads)
-        log(f"Saved {out_mutations_path}")
+        with tracer.span("cli.pileup"):
+            pileups = match_database.group_by_position()
+        with tracer.span("cli.write"):
+            writer = MutationsWriter(out_mutations_path, mutation_filter)
+            writer.write(pileups, num_threads)
+            log(f"Saved {out_mutations_path}")
 
     # --- statistics block (Mapper.java:786-869) ---------------------------
 
-    log("")
-    log("Statistics: ")
-    if match_counter.get_distance_weight() > 0:
+    with tracer.span("cli.report"):
+        log("")
+        log("Statistics: ")
+        if match_counter.get_distance_weight() > 0:
+            log(
+                f" Query pair separation distance: avg: {match_counter.get_distance_mean():.1f}"
+                f" stddev: {match_counter.get_distance_stddev():.1f} (adjust via --spacing)"
+            )
+        num_queries = match_counter.num_queries
+        num_aligned = match_counter.num_aligned_queries
+        percent = num_aligned * 100 // num_queries if num_queries else 0
+        log(f" Alignment rate                : {percent}% of queries ({num_aligned}/{num_queries})")
+        if display_coverage:
+            log(display_coverage)
+        total_len = match_counter.total_aligned_query_length
+        total_pen = match_counter.total_aligned_penalty
+        avg = total_pen / total_len if total_len else 0.0
         log(
-            f" Query pair separation distance: avg: {match_counter.get_distance_mean():.1f}"
-            f" stddev: {match_counter.get_distance_stddev():.1f} (adjust via --spacing)"
+            f" Average penalty               : {avg:.4g} per base ({int(total_pen)}/{int(total_len)}) in aligned queries"
         )
-    num_queries = match_counter.num_queries
-    num_aligned = match_counter.num_aligned_queries
-    percent = num_aligned * 100 // num_queries if num_queries else 0
-    log(f" Alignment rate                : {percent}% of queries ({num_aligned}/{num_queries})")
-    if display_coverage:
-        log(display_coverage)
-    total_len = match_counter.total_aligned_query_length
-    total_pen = match_counter.total_aligned_penalty
-    avg = total_pen / total_len if total_len else 0.0
-    log(
-        f" Average penalty               : {avg:.4g} per base ({int(total_pen)}/{int(total_len)}) in aligned queries"
-    )
-    num_indels = sum(indel_summarizer.extension_counts)
-    indels_per_base = num_indels / total_len if total_len else 0.0
-    log(
-        f" Num indels                    : {indels_per_base:.4g} per base ({num_indels}/{int(total_len)}) in aligned queries"
-    )
-    table = DisplayTable()
-    table.add_short_column(" ")
-    table.add_column(
-        format_histogram_column(
-            "Alignment Penalties Graph:",
-            "Count",
-            "Penalty/Basepair",
-            0,
-            parameters.max_error_rate,
-            20,
-            penalty_summarizer.get_counts(),
-        )
-    )
-    table.add_short_column(" ")
-    indel_counts = indel_summarizer.get_interesting_indel_length_counts()
-    table.add_column(
-        format_histogram_column(
-            "Indel Lengths Graph:",
-            "Count",
-            "Length",
-            0,
-            len(indel_counts) + 1,
-            20,
-            indel_counts,
-        )
-    )
-    log(table.format())
-    # fast-path fraction (Mapper.java:843-845): batch-resolved queries plus
-    # the exact worker's optimistic immediate accepts
-    num_immediate = worker_stats.num_immediately_accepted + getattr(
-        engine_obj, "stats_batch_resolved", 0
-    )
-    log(
-        f" Immediately accepted          : "
-        f"{num_immediate * 100 // max(1, num_queries)}% alignments "
-        f"({num_immediate}/{num_queries})"
-    )
-    log(
-        f" Alignment cache usage         : {worker_stats.num_cache_hits} loaded, "
-        f"{cache.get_usage()} stored, {worker_stats.num_cache_skips} skipped"
-    )
-    if worker_stats.query_at_random_moment is not None:
-        # Mapper.java:835-837
-        q = worker_stats.query_at_random_moment
-        log(f" Query at random moment: #{q.get_id()} : {q.format()}")
-    if worker_stats.slowest_query_name is not None:
-        # reference: per-worker slowest-query timers (AlignerWorker.java:58-71)
+        num_indels = sum(indel_summarizer.extension_counts)
+        indels_per_base = num_indels / total_len if total_len else 0.0
         log(
-            f" Slowest query                 : {worker_stats.slowest_query_name} took "
-            f"{worker_stats.slowest_query_seconds * 1000:.0f}ms "
-            f"({worker_stats.slowest_query_num_alignments} alignments)"
+            f" Num indels                    : {indels_per_base:.4g} per base ({num_indels}/{int(total_len)}) in aligned queries"
         )
-    try:
-        import resource
+        table = DisplayTable()
+        table.add_short_column(" ")
+        table.add_column(
+            format_histogram_column(
+                "Alignment Penalties Graph:",
+                "Count",
+                "Penalty/Basepair",
+                0,
+                parameters.max_error_rate,
+                20,
+                penalty_summarizer.get_counts(),
+            )
+        )
+        table.add_short_column(" ")
+        indel_counts = indel_summarizer.get_interesting_indel_length_counts()
+        table.add_column(
+            format_histogram_column(
+                "Indel Lengths Graph:",
+                "Count",
+                "Length",
+                0,
+                len(indel_counts) + 1,
+                20,
+                indel_counts,
+            )
+        )
+        log(table.format())
+        # fast-path fraction (Mapper.java:843-845): batch-resolved queries plus
+        # the exact worker's optimistic immediate accepts
+        num_immediate = worker_stats.num_immediately_accepted + getattr(
+            engine_obj, "stats_batch_resolved", 0
+        )
+        log(
+            f" Immediately accepted          : "
+            f"{num_immediate * 100 // max(1, num_queries)}% alignments "
+            f"({num_immediate}/{num_queries})"
+        )
+        log(
+            f" Alignment cache usage         : {worker_stats.num_cache_hits} loaded, "
+            f"{cache.get_usage()} stored, {worker_stats.num_cache_skips} skipped"
+        )
+        if worker_stats.query_at_random_moment is not None:
+            # Mapper.java:835-837
+            q = worker_stats.query_at_random_moment
+            log(f" Query at random moment: #{q.get_id()} : {q.format()}")
+        if worker_stats.slowest_query_name is not None:
+            # reference: per-worker slowest-query timers (AlignerWorker.java:58-71)
+            log(
+                f" Slowest query                 : {worker_stats.slowest_query_name} took "
+                f"{worker_stats.slowest_query_seconds * 1000:.0f}ms "
+                f"({worker_stats.slowest_query_num_alignments} alignments)"
+            )
+        try:
+            import resource
 
-        # ru_maxrss is KiB on Linux; the reference prints post-GC heap usage
-        # (Mapper.java:812-820) — peak RSS is the closest process-level analog
-        peak_mb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
-        log(f" Ending memory usage           : {peak_mb:.0f}mb peak RSS")
-    except Exception:
-        pass
+            # ru_maxrss is KiB on Linux; the reference prints post-GC heap usage
+            # (Mapper.java:812-820) — peak RSS is the closest process-level analog
+            peak_mb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+            log(f" Ending memory usage           : {peak_mb:.0f}mb peak RSS")
+        except Exception:
+            pass
 
-    if sam_stream is not None and sam_stream is not sys.stdout:
-        sam_stream.close()
-    if unaligned_writer is not None:
-        unaligned_writer.close()
-    log("")
-    log(f"Done in {time.time() - start_time:.1f}s.")
+        if sam_stream is not None and sam_stream is not sys.stdout:
+            sam_stream.close()
+        if unaligned_writer is not None:
+            unaligned_writer.close()
+        log("")
+        log(f"Done in {time.time() - start_time:.1f}s.")
     return 0
 
 
