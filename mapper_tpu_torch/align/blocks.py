@@ -403,6 +403,8 @@ class QueryAlignments:
     def __init__(self, query_sequences: list[Sequence], alignments_per_component: list[list[QueryAlignment]]):
         self.query_sequences = query_sequences
         self.alignments_per_component = alignments_per_component
+        # set, so that reading it costs no AttributeError
+        self.device_counted = False
 
     @staticmethod
     def single_choice(alignment: QueryAlignment) -> "QueryAlignments":
@@ -458,6 +460,7 @@ class LazyUngappedAlignments(QueryAlignments):
     def __init__(self, query_sequences, rows, materialize):
         self.query_sequences = query_sequences
         self.alignments_per_component = None
+        self.device_counted = False
         # rows: list of (reversed, ref_seq_index, offset, penalty)
         self.rows = rows
         self._materialize = materialize

@@ -891,7 +891,7 @@ def run(
     if out_vcf_path is not None:
         t_pileup = time.time()
         with tracer.span("cli.pileup"):
-            pileups = match_database.group_by_position()
+            pileups = match_database.group_by_position(tracer)
         with tracer.span("cli.write"):
             writer = VcfWriter(out_vcf_path, vcf_include_non_mutations, vcf_filter, vcf_show_support_read)
             writer.write(pileups, num_threads)
@@ -910,7 +910,7 @@ def run(
         )
     if out_mutations_path is not None:
         with tracer.span("cli.pileup"):
-            pileups = match_database.group_by_position()
+            pileups = match_database.group_by_position(tracer)
         with tracer.span("cli.write"):
             writer = MutationsWriter(out_mutations_path, mutation_filter)
             writer.write(pileups, num_threads)

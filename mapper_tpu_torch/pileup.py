@@ -27,8 +27,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from mapper_tpu_torch import basepairs
+from mapper_tpu_torch import basepairs, trace
 from mapper_tpu_torch.align.blocks import QueryAlignment, QueryAlignments
+from mapper_tpu_torch.native import pileup as native_pileup
 from mapper_tpu_torch.sequence import Sequence
 
 # allele rows in the count arrays
@@ -102,19 +103,124 @@ class MatchDatabase:
     def add_alignments(self, results: list[QueryAlignments]) -> None:
         self._pending.extend(results)
 
-    def group_by_position(self) -> dict[Sequence, ContigPileup]:
-        self._buffers: dict[int, list] = {}
-        self._fast: list = []
-        for query_alignments in self._pending:
-            self._accumulate(query_alignments)
+    def group_by_position(self, tracer=trace.OFF) -> dict[Sequence, ContigPileup]:
+        # one native pass adds every pending alignment; the Python passes
+        # below are the fallback where the library cannot be built
+        if not self._accumulate_native(tracer):
+            self._buffers: dict[int, list] = {}
+            self._fast: list = []
+            for query_alignments in self._pending:
+                self._accumulate(query_alignments)
+            self._flush_fast()
+            self._flush_buffers()
         self._pending = []
-        self._flush_fast()
-        self._flush_buffers()
         pileups = list(self.pileups.values())
         if self._contig_order is not None:
             order = self._contig_order
             pileups.sort(key=lambda p: order.get(id(p.sequence), len(order)))
         return {p.sequence: p for p in pileups}
+
+    def _accumulate_native(self, tracer) -> bool:
+        """Adds every pending alignment in one native pass
+        (native/pileup.cpp), bit for bit as the Python passes do, with no
+        Sequence object and no numpy call per read or block: the engine's
+        lazy rows and the other alignments' blocks go in as flat tables, and
+        only the insertions come back to `_add_insertion`.  Counts the
+        component alignments (`pileup.alignments`) and those the pass took
+        (`pileup.native`).  False, with nothing written, where the library
+        is unavailable or an array or index does not fit."""
+        entries: dict[int, int] = {}  # id(reference sequence) -> entry
+        entry_contig: list[int] = []
+        entry_folded: list[bool] = []
+        contigs: dict[int, int] = {}  # id(forward sequence) -> contig
+        forwards: list[Sequence] = []
+        code_parts: list[np.ndarray] = []
+        num_codes = 0
+        records: list[int] = []  # native_pileup.FIELDS an alignment, in visit order
+        blocks: list[int] = []  # (start_a, start_b, length_a, length_b) each
+        insertions: list = []  # (record, alignment, block) of each insertion
+
+        def entry_of(ref: Sequence) -> int:
+            entry = entries.get(id(ref))
+            if entry is None:
+                fwd = ref.complemented_from
+                entry_folded.append(fwd is not None)
+                fwd = ref if fwd is None else fwd
+                contig = contigs.get(id(fwd))
+                if contig is None:
+                    contig = contigs[id(fwd)] = len(forwards)
+                    forwards.append(fwd)
+                entry_contig.append(contig)
+                entry = entries[id(ref)] = len(entry_contig) - 1
+            return entry
+
+        lazy, first_mate = native_pileup.LAZY, native_pileup.FIRST_MATE
+        last_ref, last_entry = None, -1
+        for query_alignments in self._pending:
+            # results already counted by the batch engine's DevicePileup
+            if query_alignments.device_counted:
+                continue
+            rows = getattr(query_alignments, "rows", None)
+            if rows is not None and query_alignments.alignments_per_component is None:
+                # the engine's LazyUngappedAlignments: one full-length block
+                # a row, the read's codes reverse-complemented natively
+                codes = query_alignments.query_sequences[0].codes
+                length = len(codes)
+                code_parts.append(codes)
+                choices = len(rows)
+                for rev, ref, off, _pen in rows:
+                    if ref is not last_ref:
+                        last_ref, last_entry = ref, entry_of(ref)
+                    records += (num_codes, length, lazy | rev, last_entry, choices, off)
+                num_codes += length
+                continue
+            for component_alignments in query_alignments.get_alignments():
+                choices = len(component_alignments)
+                for choice in component_alignments:
+                    components = choice.components
+                    mate = first_mate if len(components) == 2 else 0
+                    for seq_alignment in components:
+                        sections = seq_alignment.sections
+                        codes = sections[0].sequence_a.codes
+                        code_parts.append(codes)
+                        ref = sections[0].sequence_b
+                        if ref is not last_ref:
+                            last_ref, last_entry = ref, entry_of(ref)
+                        records += (num_codes, len(codes), mate, last_entry, choices, len(sections))
+                        num_codes += len(codes)
+                        mate += mate
+                        for block in sections:
+                            blocks += (block.start_a, block.start_b, block.length_a, block.length_b)
+                            if block.length_b == 0 and block.length_a > 0:
+                                insertions.append((len(records) // native_pileup.FIELDS - 1, seq_alignment, block))
+
+        num = len(records) // native_pileup.FIELDS
+        tracer.count("pileup.alignments", num)
+        if num:
+            # new pileups join self.pileups once the pass has run, in the
+            # order the Python passes would have made them
+            pileups = []
+            for fwd in forwards:
+                pileup = self.pileups.get(id(fwd))
+                pileups.append(ContigPileup.empty(fwd) if pileup is None else pileup)
+            out = native_pileup.accumulate(
+                pileups, [self._ref_rows(p) for p in pileups], entry_contig, entry_folded,
+                b"".join(code_parts), _CODE_TO_ROW, basepairs.COMPLEMENT_TABLE, self.query_end_fraction,
+                records, blocks,
+            )
+            if out is None:
+                tracer.count("pileup.native", 0)
+                return False
+            overlap_lo, overlap_hi, order = out
+            for contig in order:
+                self.pileups.setdefault(id(forwards[contig]), pileups[contig])
+            # insertions, keyed by their text, in visit order
+            for k, seq_alignment, block in insertions:
+                lo, hi = int(overlap_lo[k]), int(overlap_hi[k])
+                weight = 1.0 / records[native_pileup.FIELDS * k + 4]
+                self._add_insertion(seq_alignment, block, weight, (lo, hi) if lo >= 0 else None)
+        tracer.count("pileup.native", num)
+        return True
 
     def _flush_fast(self) -> None:
         """Columnar accumulation of the dominant alignment shape — one
@@ -351,7 +457,7 @@ class MatchDatabase:
     def _accumulate_sequence(self, alignment, weight: float, overlap_range) -> None:
         query = alignment.get_sequence_a()
         ref = alignment.get_sequence_b()
-        pileup = self._pileup_for(ref)
+        self._pileup_for(ref)  # made here, in visit order
         buf = self._buffer_for(
             id(ref.complemented_from if ref.complemented_from is not None else ref)
         )
@@ -369,8 +475,6 @@ class MatchDatabase:
             if folded:
                 return basepairs.COMPLEMENT_TABLE[codes]
             return codes
-
-        read_name = query.name
 
         for block in alignment.sections:
             if block.length_a == block.length_b and block.length_a > 0:
@@ -405,28 +509,38 @@ class MatchDatabase:
                     # mark the deletion start (leftmost folded coordinate)
                     buf[2].append((int(positions.min()), w[0]))
             elif block.length_a > 0:
-                # insertion: record at the forward position it precedes
-                inserted = fold_codes(query.codes[block.start_a : block.end_a])
-                if folded:
-                    inserted = inserted[::-1]
-                    position = ref_len - block.start_b
-                else:
-                    position = block.start_b
-                text = basepairs.decode(inserted)
-                mid_q = block.start_a
-                dist_from_end = min(mid_q, query_len - mid_q)
-                is_end = dist_from_end < end_margin
-                w = weight
-                if overlap_range is not None and (
-                    overlap_range[0] <= block.start_b < overlap_range[1]
-                ):
-                    w = weight * 0.5
-                # 4th element: global query id of the first contributor, so
-                # multi-process merges can keep the 1-process example read
-                entry = pileup.insertions.setdefault(
-                    (position, text), [0.0, 0.0, read_name, query.identifier]
-                )
-                if is_end:
-                    entry[1] += w
-                else:
-                    entry[0] += w
+                self._add_insertion(alignment, block, weight, overlap_range)
+
+    def _add_insertion(self, alignment, block, weight: float, overlap_range) -> None:
+        """An insertion block: its weight recorded at the forward position it
+        precedes, keyed by the inserted text (the Python passes and the
+        native pass both)."""
+        query = alignment.get_sequence_a()
+        ref = alignment.get_sequence_b()
+        pileup = self._pileup_for(ref)
+        folded = ref.complemented_from is not None
+        inserted = query.codes[block.start_a : block.end_a]
+        if folded:
+            inserted = basepairs.COMPLEMENT_TABLE[inserted][::-1]
+            position = len(ref) - block.start_b
+        else:
+            position = block.start_b
+        text = basepairs.decode(inserted)
+        query_len = len(query)
+        mid_q = block.start_a
+        dist_from_end = min(mid_q, query_len - mid_q)
+        is_end = dist_from_end < self.query_end_fraction * query_len
+        w = weight
+        if overlap_range is not None and (
+            overlap_range[0] <= block.start_b < overlap_range[1]
+        ):
+            w = weight * 0.5
+        # 4th element: global query id of the first contributor, so
+        # multi-process merges can keep the 1-process example read
+        entry = pileup.insertions.setdefault(
+            (position, text), [0.0, 0.0, query.name, query.identifier]
+        )
+        if is_end:
+            entry[1] += w
+        else:
+            entry[0] += w

@@ -86,10 +86,23 @@ def barrier(name: str) -> None:
     dist.barrier()
 '''
 
+def _port_method(module: str, cls: str, name: str) -> str:
+    """The source text of a method the port's copy adds, indented as in
+    the file."""
+    text = (PORT / module).read_text()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.ClassDef) and node.name == cls:
+            for item in node.body:
+                if isinstance(item, ast.FunctionDef) and item.name == name:
+                    return "    " + ast.get_source_segment(text, item)
+    raise LookupError(f"{module}: {cls}.{name} not found")
+
+
 # module -> (text of the renamed original, text of the port's copy)
 INTENDED = {
     # a cache hit keeps each component's strand (the JAX package gives a
-    # reverse-strand component the forward read)
+    # reverse-strand component the forward read); results set
+    # device_counted when they are made
     "align/blocks.py": [(
         """        new_components = [
             c.with_sequence_a(sequences[i]) for i, c in enumerate(self.components)
@@ -104,6 +117,25 @@ INTENDED = {
             )
             for i, c in enumerate(self.components)
         ]""",
+    ), (
+        # results carry device_counted from the start: the pileup reads it
+        # for every result, and reading an unset slot raises
+        """        self.query_sequences = query_sequences
+        self.alignments_per_component = alignments_per_component
+""",
+        """        self.query_sequences = query_sequences
+        self.alignments_per_component = alignments_per_component
+        # set, so that reading it costs no AttributeError
+        self.device_counted = False
+""",
+    ), (
+        """        self.query_sequences = query_sequences
+        self.alignments_per_component = None
+""",
+        """        self.query_sequences = query_sequences
+        self.alignments_per_component = None
+        self.device_counted = False
+""",
     )],
     # the native libraries build into a cache directory of the port's own
     "native/__init__.py": [(
@@ -168,6 +200,133 @@ INTENDED = {
             self.writer = fastx.FastqWriter(target)
         elif base.endswith((".fasta", ".fa", ".fna")):
             self.writer = fastx.FastaWriter(target)
+""",
+    )],
+    # one native pass (native/pileup.cpp) accumulates the pending
+    # alignments, with counters for the tracer; the Python passes remain as
+    # its fallback.  Both record insertions through one helper,
+    # `_add_insertion`, the original's insertion branch moved into a method
+    "pileup.py": [(
+        """from mapper_tpu_torch import basepairs
+from mapper_tpu_torch.align.blocks import QueryAlignment, QueryAlignments
+""",
+        """from mapper_tpu_torch import basepairs, trace
+from mapper_tpu_torch.align.blocks import QueryAlignment, QueryAlignments
+from mapper_tpu_torch.native import pileup as native_pileup
+""",
+    ), (
+        """    def group_by_position(self) -> dict[Sequence, ContigPileup]:
+        self._buffers: dict[int, list] = {}
+        self._fast: list = []
+        for query_alignments in self._pending:
+            self._accumulate(query_alignments)
+        self._pending = []
+        self._flush_fast()
+        self._flush_buffers()
+""",
+        """    def group_by_position(self, tracer=trace.OFF) -> dict[Sequence, ContigPileup]:
+        # one native pass adds every pending alignment; the Python passes
+        # below are the fallback where the library cannot be built
+        if not self._accumulate_native(tracer):
+            self._buffers: dict[int, list] = {}
+            self._fast: list = []
+            for query_alignments in self._pending:
+                self._accumulate(query_alignments)
+            self._flush_fast()
+            self._flush_buffers()
+        self._pending = []
+""",
+    ), (
+        # the native pass's intake, the port's own code (its results are
+        # held against the JAX package by tests/test_torch_pileup_native.py)
+        """        return {p.sequence: p for p in pileups}
+
+""",
+        """        return {p.sequence: p for p in pileups}
+
+""" + _port_method("pileup.py", "MatchDatabase", "_accumulate_native") + """
+
+""",
+    ), (
+        """        pileup = self._pileup_for(ref)
+        buf = self._buffer_for(""",
+        """        self._pileup_for(ref)  # made here, in visit order
+        buf = self._buffer_for(""",
+    ), (
+        """            return codes
+
+        read_name = query.name
+""",
+        """            return codes
+""",
+    ), (
+        """            elif block.length_a > 0:
+                # insertion: record at the forward position it precedes
+                inserted = fold_codes(query.codes[block.start_a : block.end_a])
+                if folded:
+                    inserted = inserted[::-1]
+                    position = ref_len - block.start_b
+                else:
+                    position = block.start_b
+                text = basepairs.decode(inserted)
+                mid_q = block.start_a
+                dist_from_end = min(mid_q, query_len - mid_q)
+                is_end = dist_from_end < end_margin
+                w = weight
+""",
+        """            elif block.length_a > 0:
+                self._add_insertion(alignment, block, weight, overlap_range)
+
+    def _add_insertion(self, alignment, block, weight: float, overlap_range) -> None:
+        \"\"\"An insertion block: its weight recorded at the forward position it
+        precedes, keyed by the inserted text (the Python passes and the
+        native pass both).\"\"\"
+        query = alignment.get_sequence_a()
+        ref = alignment.get_sequence_b()
+        pileup = self._pileup_for(ref)
+        folded = ref.complemented_from is not None
+        inserted = query.codes[block.start_a : block.end_a]
+        if folded:
+            inserted = basepairs.COMPLEMENT_TABLE[inserted][::-1]
+            position = len(ref) - block.start_b
+        else:
+            position = block.start_b
+        text = basepairs.decode(inserted)
+        query_len = len(query)
+        mid_q = block.start_a
+        dist_from_end = min(mid_q, query_len - mid_q)
+        is_end = dist_from_end < self.query_end_fraction * query_len
+        w = weight
+""",
+    ), (
+        # the rest of the branch, dedented into the helper
+        """                if overlap_range is not None and (
+                    overlap_range[0] <= block.start_b < overlap_range[1]
+                ):
+                    w = weight * 0.5
+                # 4th element: global query id of the first contributor, so
+                # multi-process merges can keep the 1-process example read
+                entry = pileup.insertions.setdefault(
+                    (position, text), [0.0, 0.0, read_name, query.identifier]
+                )
+                if is_end:
+                    entry[1] += w
+                else:
+                    entry[0] += w
+""",
+        """        if overlap_range is not None and (
+            overlap_range[0] <= block.start_b < overlap_range[1]
+        ):
+            w = weight * 0.5
+        # 4th element: global query id of the first contributor, so
+        # multi-process merges can keep the 1-process example read
+        entry = pileup.insertions.setdefault(
+            (position, text), [0.0, 0.0, query.name, query.identifier]
+        )
+        if is_end:
+            entry[1] += w
+        else:
+            entry[0] += w
 """,
     )],
     # torch.distributed (gloo) links the processes in place of

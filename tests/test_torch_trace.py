@@ -1,7 +1,8 @@
 """The port's spans and counters (`mapper_tpu_torch/trace.py`): tiny CLI runs
 on the CPU, single-end and paired, traced with `MAPPER_TPU_TRACE=1` and not;
-the `[trace]` line's form, the spans' nesting and names, the counters, and
-outputs that tracing leaves byte for byte as they were."""
+the `[trace]` line's form, the spans' nesting and names, the counters (the
+pileup's among them), and outputs that tracing leaves byte for byte as they
+were."""
 
 import contextlib
 import io
@@ -157,6 +158,17 @@ def test_counters_add_up(inputs, runs, kind):
     if kind == "single":
         assert counts["reads.fallback"] >= 8 and reasons >= 8  # the unalignable reads
     assert not any(k.startswith("launches.") for k in counts)  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("kind", ["single", "paired"])
+def test_pileup_counters_count_every_alignment(runs, kind):
+    """Each component alignment is one SAM row, and the one native pass of
+    `group_by_position` accumulated every one of them."""
+    record, _ = _spans(runs[kind, True][2])
+    sam = runs[kind, True][0]["out.sam"].decode()
+    rows = [line for line in sam.splitlines() if not line.startswith("@")]
+    counts = record["counts"]
+    assert counts["pileup.alignments"] == counts["pileup.native"] == len(rows) > 0
 
 
 def test_legacy_decide_line_once_per_single_end_chunk(runs):
