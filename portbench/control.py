@@ -1,13 +1,17 @@
 """The control of the comparison that decides `correct`: the reference put in
 the program's place with one of the configuration's guarantees broken.
 
-The control aligns every read without gaps, at the least-penalty offset of
-its window (`reference.align.best_ungapped`), as a scorer would that never
-searches for an insertion or deletion: the step a later change could be
-tempted by, since the indel rows are what reaches K1.  It writes the SAM
-rows such a program would write (a read whose penalty passes the
+The control aligns every read (every piece, where the configuration
+splits reads) without gaps, at the least-penalty offset of its window on
+the plain reference (`reference.align.best_ungapped`), as a scorer would
+that never searches for an insertion or deletion: the step a later change
+could be tempted by, since the indel rows are what reaches K1.  It writes
+the SAM rows such a program would write (a read whose penalty passes the
 configuration's error rate is unaligned) and the mutations file or VCF
-that the reference sums from them, and the judge must find it not correct.
+that the reference sums from them.  Where the configuration writes an
+inferred ancestor, the control also stands for a program without ancestor
+inference: it writes the plain reference as its ancestor.  The judge must
+find it not correct.
 
     python3 -m portbench.control --workload <name> --seeds <n> [<n> ...] [--device cuda|cpu]
 
@@ -34,24 +38,29 @@ def control_sam(sample, device) -> str:
     """The ungapped control's SAM for the sample (single or paired)."""
     cfg = sample.config
     pen = align.penalties(cfg)
-    max_tenths = cfg["max_error_rate"] * 10 * cfg["reads"]["length"]
     placed = []
-    for reads in sample.reads:
-        lo, width = align.windows(sample.ref.shape[0], reads.start, reads.span)
-        tenths, pos = align.best_ungapped(sample.ref, judge.forward_codes(reads), lo, width, pen, device)
-        placed.append((reads, tenths, pos, tenths <= max_tenths))
+    for reads in judge.units(sample):
+        penalty = np.empty(len(reads.names), dtype=np.int64)
+        pos = np.empty(len(reads.names), dtype=np.int64)
+        for idx, group in judge.by_length(reads):
+            lo, width = align.windows(sample.ref.shape[0], group.start, group.span)
+            penalty[idx], pos[idx] = align.best_ungapped(sample.ref, judge.forward_codes(group), lo, width, pen,
+                                                         device)
+        most = cfg["max_error_rate"] * align.SCALE * np.array([len(t) for t in reads.texts])
+        placed.append((reads, penalty, pos, penalty <= most))
     lines = ["@HD\tVN:1.6\tSO:unsorted", f"@SQ\tSN:{sample.contig}\tLN:{sample.ref.shape[0]}"]
 
-    def row(reads, k, tenths, pos, flag, rnext="*", pnext=0):
+    def row(reads, k, penalty, pos, flag, rnext="*", pnext=0):
         text = reads.texts[k]
         seq = generate.decode(generate.reverse_complement(generate.encode(text))) if reads.reverse[k] else text
         flag |= sam.FLAG_REVERSE if reads.reverse[k] else 0
+        score = np.float32(penalty[k] / align.SCALE)
         return "\t".join([reads.names[k], str(flag), sample.contig, str(int(pos[k]) + 1), "255", f"{len(text)}M",
-                          rnext, str(pnext), str(len(text)), seq, "*", f"AS:f:{np.float32(tenths[k] / 10)}"])
+                          rnext, str(pnext), str(len(text)), seq, "*", f"AS:f:{score}"])
 
     if len(placed) == 1:
-        reads, tenths, pos, ok = placed[0]
-        lines += [row(reads, k, tenths, pos, 0) for k in np.nonzero(ok)[0].tolist()]
+        reads, penalty, pos, ok = placed[0]
+        lines += [row(reads, k, penalty, pos, 0) for k in np.nonzero(ok)[0].tolist()]
     else:
         (r1, t1, p1, ok1), (r2, t2, p2, ok2) = placed
         for k in range(len(r1.names)):
@@ -70,10 +79,12 @@ def control_sam(sample, device) -> str:
 
 def control_outputs(sample, device) -> dict:
     """The control's outputs, its summaries summed by the reference from its
-    own SAM."""
+    own SAM, its ancestor the plain reference."""
     cfg = sample.config
     text = control_sam(sample, device)
     outputs = {"sam": text}
+    if "ancestor" in cfg["outputs"]:
+        outputs["ancestor"] = f">{sample.contig}-anc\n{generate.decode(sample.ref)}\n"
     rows = sam.parse(text)
     p = pileup.pileup(rows, np.ones(len(rows.qname), dtype=bool), sample.ref.shape[0], cfg["query_end_fraction"])
     if "mutations" in cfg["outputs"]:
@@ -91,7 +102,7 @@ def run_control(root: Path, workload: str, seed: int, device: str) -> dict:
     cell = cells.load(root, workload)
     with tempfile.TemporaryDirectory(prefix="portbench-control-") as tmp:
         sample = make_sample(cell, seed, Path(tmp))
-    numbers = judge.judge(sample, control_outputs(sample, device), judge.optimum(sample, device))
+    numbers, _ = judge.assess(sample, control_outputs(sample, device), device)
     limits = cell.limits["limits"]
     checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
     return {"correct": all(c["value"] <= c["limit"] for c in checks.values()), "checks": checks}

@@ -3,7 +3,9 @@ sampled from it, written as FASTA/FASTQ, with each read's origin kept for
 the reference comparison.
 
 Frozen copies of `benchmarks/simlib.py` (`random_reference`,
-`simulate_paired`) and `mapper_tpu_torch/simulate.py` (`simulate_reads`):
+`simulate_single`, `simulate_paired`), of BASELINE config 5's reference
+builder (`benchmarks/bench_config5_longreads.py`: `planted_reference`) and
+of `mapper_tpu_torch/simulate.py` (`simulate_reads`):
 for the same generator state they draw the same numbers in the same order
 and give the same reads (`portbench/tests/test_portbench_generate.py` holds
 them equal today).  Later edits to those files do not move this yardstick.  The paired
@@ -40,9 +42,42 @@ def reverse_complement(codes: np.ndarray) -> np.ndarray:
     return COMPLEMENT[codes[::-1]]
 
 
+def _mutate(rng, read: np.ndarray, snp_rate: float) -> np.ndarray:
+    """simlib.mutate on codes."""
+    snps = rng.random(read.shape[0]) < snp_rate
+    k = int(snps.sum())
+    if k:
+        read = read.copy()
+        read[snps] = CODES[rng.integers(0, 4, size=k)]
+    return read
+
+
 def random_reference(rng: np.random.Generator, size: int) -> str:
     """simlib.random_reference: one draw of `size` integers."""
     return DECODE[CODES[rng.integers(0, 4, size=size)]].tobytes().decode("ascii")
+
+
+@dataclass
+class Planted:
+    """Where a planted reference repeats itself: `copies` start at each of
+    `starts` (the source segment first), `segment` bases each, on the
+    forward strand, with no indel between them, so one column of the
+    segment is one position in every copy."""
+
+    starts: list[int]
+    segment: int
+
+
+def planted_reference(rng: np.random.Generator, size: int, segment: int, copies: int,
+                      snp_rate: float) -> tuple[str, Planted]:
+    """bench_config5_longreads.py's reference: a random sequence of `size -
+    copies * segment` bases, then `copies` copies of its first `segment`
+    bases, each with SNPs at `snp_rate` a base (`simlib.mutate`)."""
+    base = random_reference(rng, size - copies * segment)
+    source = encode(base[:segment])
+    text = base + "".join(decode(_mutate(rng, source, snp_rate)) for _ in range(copies))
+    first = len(base)
+    return text, Planted([0] + [first + k * segment for k in range(copies)], segment)
 
 
 @dataclass
@@ -109,14 +144,23 @@ def simulate_reads(rng: np.random.Generator, ref_text: str, num_reads: int, leng
     return Reads(names, texts, start, span, reverse)
 
 
-def _mutate(rng, read: np.ndarray, snp_rate: float) -> np.ndarray:
-    """simlib.mutate on codes."""
-    snps = rng.random(read.shape[0]) < snp_rate
-    k = int(snps.sum())
-    if k:
-        read = read.copy()
-        read[snps] = CODES[rng.integers(0, 4, size=k)]
-    return read
+def simulate_single(rng: np.random.Generator, ref_text: str, num_reads: int, length: int,
+                    snp_rate: float, prefix: str = "r") -> Reads:
+    """simlib.simulate_single: SNPs only, each read reverse-complemented with
+    probability 0.5 (its `rc_fraction`)."""
+    ref = encode(ref_text)
+    names, texts = [], []
+    start = np.zeros(num_reads, dtype=np.int64)
+    reverse = np.zeros(num_reads, dtype=bool)
+    for i in range(num_reads):
+        start[i] = int(rng.integers(0, len(ref) - length))
+        read = _mutate(rng, ref[start[i] : start[i] + length], snp_rate)
+        if rng.random() < 0.5:
+            read = reverse_complement(read)
+            reverse[i] = True
+        names.append(f"{prefix}{i}")
+        texts.append(decode(read))
+    return Reads(names, texts, start, np.full(num_reads, length, dtype=np.int64), reverse)
 
 
 def simulate_paired(rng: np.random.Generator, ref_text: str, num_pairs: int, length: int,

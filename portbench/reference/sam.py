@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from portbench.generate import ENCODE, reverse_complement, decode, encode
+from portbench.reference.align import base_costs
 
 CIGAR = re.compile(r"(\d+)([MIDS])")
 FLAG_PAIRED, FLAG_PROPER, FLAG_MATE_UNMAPPED = 1, 2, 8
@@ -75,9 +76,11 @@ def ref_span(cigar_blocks) -> int:
 
 
 def row_penalties(rows: Rows, ref: np.ndarray, contig: str, pen: dict) -> np.ndarray:
-    """Each row's penalty in tenths, worked out from the reference; -1 where
+    """Each row's penalty in units of 1/`align.SCALE`, worked out from the
+    reference's codes (an inferred ancestor's unions included); -1 where
     the row cannot be an alignment (another contig, a malformed CIGAR, a
     CIGAR that does not consume SEQ, bases outside the contig)."""
+    cost = base_costs(pen)
     out = np.full(len(rows.qname), -1, dtype=np.int64)
     full = {}
     for i, (cig, seq) in enumerate(zip(rows.cigar, rows.seq)):
@@ -95,7 +98,7 @@ def row_penalties(rows: Rows, ref: np.ndarray, contig: str, pen: dict) -> np.nda
             continue
         for n, op in parsed:
             if op == "M":
-                total += int(((q[qi : qi + n] & ref[ri : ri + n]) == 0).sum()) * pen["mutation"]
+                total += int(cost[q[qi : qi + n], ref[ri : ri + n]].sum())
                 qi, ri = qi + n, ri + n
             elif op == "I":
                 total += pen["ins_open"] + n * pen["ins_ext"]
@@ -114,7 +117,7 @@ def row_penalties(rows: Rows, ref: np.ndarray, contig: str, pen: dict) -> np.nda
         idx, pos = idx[ok], pos[ok]
         q = ENCODE[np.frombuffer("".join(rows.seq[i] for i in idx).encode("ascii"), dtype=np.uint8)]
         r = ref[pos[:, None] + np.arange(length)[None, :]]
-        out[idx] = ((q.reshape(-1, length) & r) == 0).sum(axis=1) * pen["mutation"]
+        out[idx] = cost[q.reshape(-1, length), r].sum(axis=1)
     return out
 
 

@@ -55,7 +55,7 @@ from portbench import cells, generate
 from portbench import trace as tr
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "mapper_tpu")
-OUTPUT_FILES = {"sam": "out.sam", "mutations": "mutations.txt", "vcf": "out.vcf"}
+OUTPUT_FILES = {"sam": "out.sam", "mutations": "mutations.txt", "vcf": "out.vcf", "ancestor": "ancestor.fasta"}
 ALIGN_PHASE = re.compile(r"Align phase: (\d+) queries in ([0-9.]+)s")
 
 
@@ -72,6 +72,7 @@ class Sample:
     files: dict  # placeholder -> path
     warm_files: dict
     num_reads: int
+    planted: generate.Planted | None = None  # the reference's planted copies
 
 
 @dataclass
@@ -114,11 +115,22 @@ def environment(root: Path, device: str) -> None:
 
 
 def make_sample(cell, seed: int, work: Path) -> Sample:
-    """The cell's reference and reads from `seed`, written under `work`."""
+    """The cell's reference and reads from `seed`, written under `work`.
+
+    Optional keys: the configuration's `reference.repeats` (`segment`,
+    `copies`, `snp_rate`) plants copies of the reference's first bases at
+    its end (`generate.planted_reference`); the traffic file's `simulator`
+    "simulate_single" draws single-end reads with SNPs alone and a random
+    strand (`generate.simulate_single`) in place of `simulate_reads`."""
     cfg, traffic = cell.config, cell.traffic
     rng = np.random.default_rng(seed)
     contig = cfg["reference"]["name"]
-    ref_text = generate.random_reference(rng, cfg["reference"]["length"])
+    repeats = cfg["reference"].get("repeats")
+    if repeats:
+        ref_text, planted = generate.planted_reference(rng, cfg["reference"]["length"], repeats["segment"],
+                                                       repeats["copies"], repeats["snp_rate"])
+    else:
+        ref_text, planted = generate.random_reference(rng, cfg["reference"]["length"]), None
     reads_cfg = cfg["reads"]
     length = reads_cfg["length"]
     generate.write_fasta(work / "ref.fasta", [contig], [ref_text], 80)
@@ -126,8 +138,11 @@ def make_sample(cell, seed: int, work: Path) -> Sample:
     warm = dict(files)
     n_warm = cfg["warmup_reads"]
     if reads_cfg["layout"] == "single":
-        reads = [generate.simulate_reads(rng, ref_text, reads_cfg["count"], length,
-                                         traffic["snp_rate"], traffic["indel_fraction"])]
+        if traffic.get("simulator") == "simulate_single":
+            reads = [generate.simulate_single(rng, ref_text, reads_cfg["count"], length, traffic["snp_rate"])]
+        else:
+            reads = [generate.simulate_reads(rng, ref_text, reads_cfg["count"], length,
+                                             traffic["snp_rate"], traffic["indel_fraction"])]
         r = reads[0]
         files["reads"], warm["reads"] = work / "reads.fastq", work / "warm.fastq"
         generate.write_fastq(files["reads"], r.names, r.texts)
@@ -139,12 +154,18 @@ def make_sample(cell, seed: int, work: Path) -> Sample:
             files[f"reads_{mate}"], warm[f"reads_{mate}"] = work / f"reads_{mate}.fasta", work / f"warm_{mate}.fasta"
             generate.write_fasta(files[f"reads_{mate}"], r.names, r.texts)
             generate.write_fasta(warm[f"reads_{mate}"], r.names[: n_warm // 2], r.texts[: n_warm // 2])
-    return Sample(cfg, contig, generate.encode(ref_text), reads, files, warm, sum(len(r.names) for r in reads))
+    return Sample(cfg, contig, generate.encode(ref_text), reads, files, warm, sum(len(r.names) for r in reads),
+                  planted)
 
 
 def cli_argv(config: dict, files: dict, outdir: Path, cache_dir: Path) -> list[str]:
+    """The configuration's `cli` flags with their placeholders filled: the
+    input files, `OUTPUT_FILES` under `outdir`, and `{split_past}` (the
+    configuration's `reads.split_past`)."""
     names = {k: str(v) for k, v in files.items()}
     names.update({k: str(outdir / v) for k, v in OUTPUT_FILES.items()})
+    if "split_past" in config["reads"]:
+        names["split_past"] = str(config["reads"]["split_past"])
     args = [a.format(**names) for a in config["cli"]]
     return ["--reference", names["reference"], *args, "--cache-dir", str(cache_dir)]
 
@@ -333,10 +354,10 @@ def judge_window(sample: Sample, window: Window, outputs: list[str], job0: Path,
     for name in outputs:
         path = job0 / OUTPUT_FILES[name]
         texts[name] = path.read_text() if path.exists() else ""
-    best = judge.optimum(sample, device)
-    numbers.update(judge.judge(sample, texts, best))
+    judged, missing = judge.assess(sample, texts, device)
+    numbers.update(judged)
     same = 1 + sum(1 for j in window.jobs[1:] if j.digest == first.digest)
-    failed = (sample.num_reads * (len(window.jobs) - same) + numbers["missing_reads"] * same
+    failed = (sample.num_reads * (len(window.jobs) - same) + missing * same
               if numbers["failed_jobs"] == 0 else sample.num_reads * len(window.jobs))
     checks = {name: {"value": value, "limit": limits["limits"][name]} for name, value in numbers.items()}
     return checks, failed

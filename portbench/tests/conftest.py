@@ -11,9 +11,13 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[2]
-# the tiny shapes a CPU test run holds; widths (read length, penalties, pair
-# geometry) stay the configurations'
-TINY = {"length": 200_000, "count": 3000, "pairs": 1500, "warmup_reads": 512}
+# the tiny shapes a CPU test run holds; widths (read length, split size,
+# penalties, pair geometry, the planted copies' number and SNP rate) stay the
+# configurations'.  Reads past a kilobase, which the CPU's plain scorer
+# aligns far more slowly a base, are cut to `long_bases` bases in all; a
+# planted segment to `segment` bases, so that its copies fit the reference.
+TINY = {"length": 200_000, "count": 3000, "pairs": 1500, "warmup_reads": 512, "long_bases": 120_000,
+        "long_warmup_reads": 2, "segment": 10_000}
 
 
 def pytest_configure(config):
@@ -51,10 +55,13 @@ def shrink(root: Path) -> None:
     for path in (root / "portbench" / "configs").glob("*.json"):
         cfg = json.loads(path.read_text())
         cfg["reference"]["length"] = TINY["length"]
+        if "repeats" in cfg["reference"]:
+            cfg["reference"]["repeats"]["segment"] = min(cfg["reference"]["repeats"]["segment"], TINY["segment"])
+        long = cfg["reads"]["length"] > 1000
         for key in ("count", "pairs"):
             if key in cfg["reads"]:
-                cfg["reads"][key] = TINY[key]
-        cfg["warmup_reads"] = TINY["warmup_reads"]
+                cfg["reads"][key] = TINY["long_bases"] // cfg["reads"]["length"] if long else TINY[key]
+        cfg["warmup_reads"] = TINY["long_warmup_reads"] if long else TINY["warmup_reads"]
         path.write_text(json.dumps(cfg))
 
 

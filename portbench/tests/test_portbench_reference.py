@@ -33,7 +33,7 @@ def cli_run(request, tmp_path_factory):
 
 def numbers(cli_run, **changed):
     sample, outputs, best = cli_run
-    return judge.judge(sample, {**outputs, **changed}, best)
+    return judge._judge(sample, {**outputs, **changed}, best, sample.ref)[0]
 
 
 def test_reference_agrees_with_the_cli(cli_run):
@@ -107,7 +107,7 @@ def test_a_worse_alignment_is_caught(cli_run):
         f[9] = "".join(seq)
         f[-1] = "AS:f:1.0\n"
         lines[i] = "\t".join(f)
-        got = judge.judge(sample, {**outputs, "sam": "".join(lines)}, best)
+        got = judge._judge(sample, {**outputs, "sam": "".join(lines)}, best, sample.ref)[0]
     finally:
         reads.texts[k] = old
     assert got["penalty_gap"] == 1.0 and got["reads_above_optimum"] == 1 and got["bad_rows"] == 0
