@@ -179,7 +179,7 @@ def _main(argv: list[str] | None, tracer) -> int:
         elif arg == "--queries":
             provider = fastx.load_from(args[i + 1], keep_quality=True)
             if split_queries_past_size > 0:
-                provider = SequenceSplitter(split_queries_past_size, provider)
+                provider = SequenceSplitter(split_queries_past_size, provider, tracer)
             query_providers.append(SimpleQueryProvider(provider))
             i += 2
         elif arg == "--paired-queries":
@@ -534,15 +534,16 @@ def run(
         if guess_reference_ancestors:
             from mapper_tpu_torch.index.ancestry import AncestryDetector
 
-            original_db = HashBlockDatabase(
-                sequence_database,
-                min_interesting_size=min_dup,
-                hint_max_interesting_size=max_dup,
-                max_num_short_matches=8,
-                enable_gapmers=enable_gapmers,
-                cache_dir=dir_cache,
-                logger=reference_logger,
-            )
+            with tracer.span("ancestry.source_index"):
+                original_db = HashBlockDatabase(
+                    sequence_database,
+                    min_interesting_size=min_dup,
+                    hint_max_interesting_size=max_dup,
+                    max_num_short_matches=8,
+                    enable_gapmers=enable_gapmers,
+                    cache_dir=dir_cache,
+                    logger=reference_logger,
+                )
             if verify_consistent_database:
                 original_db.verify_matches(
                     HashBlockDatabase(
@@ -558,7 +559,7 @@ def run(
             )
             dissimilarity = parameters.max_error_rate / parameters.mutation_penalty
             provider = AncestryDetector(
-                ancestry_dups, sorted_reference, dissimilarity, out_ancestor_path
+                ancestry_dups, sorted_reference, dissimilarity, out_ancestor_path, tracer=tracer
             )
             hashblock_database = provider.get_hashblock_database()
             reference_index = ReferenceIndex(sequence_database, hashblock_database, None)

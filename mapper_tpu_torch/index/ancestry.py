@@ -25,7 +25,7 @@ import bisect
 
 import numpy as np
 
-from mapper_tpu_torch import basepairs
+from mapper_tpu_torch import basepairs, trace
 from mapper_tpu_torch.index.database import HashBlockDatabase
 from mapper_tpu_torch.index.duplication import Duplication, DuplicationDetector
 from mapper_tpu_torch.sequence import Sequence, SequenceDatabase
@@ -102,12 +102,16 @@ class AncestryDetector:
         dissimilarity_threshold: float,
         output_path: str | None = None,
         enable_gapmers: bool = True,
+        tracer=trace.OFF,
     ):
         self.duplication_detector = duplication_detector
         self.reference = reference
         self.dissimilarity_threshold = dissimilarity_threshold
         self.output_path = output_path
         self.enable_gapmers = enable_gapmers
+        # spans of the inference's stages (`ancestry.detect`, `.walk`,
+        # `.emit`, `.index`) and counters of its duplications and bases
+        self.tracer = tracer
         self.overrides: dict[int, _Overrides] = {
             id(seq): _Overrides(seq) for seq in reference
         }
@@ -135,34 +139,41 @@ class AncestryDetector:
     # --- the inference ----------------------------------------------------
 
     def _union_recent_ancestors(self) -> HashBlockDatabase:
+        tracer = self.tracer
         detector = self.duplication_detector
-        detector.ensure_detected()
+        with tracer.span("ancestry.detect"):
+            detector.ensure_detected()
         duplications = detector.get_all()
         # deterministic processing order
         duplications.sort(key=lambda d: (d.length, d.positions))
-        for duplication in duplications:
-            self._analyze(duplication, -1)
-            self._analyze(duplication, 1)
+        with tracer.span("ancestry.walk"):
+            for duplication in duplications:
+                self._analyze(duplication, -1)
+                self._analyze(duplication, 1)
+        tracer.count("ancestry.duplications", len(duplications))
 
-        forward_overrides = []
-        for seq in self.reference:
-            if seq.complemented_from is None:
-                built = self.overrides[id(seq)].build()
-                forward_overrides.append(built)
-                self._original_by_override[id(built)] = seq
-        seq_db = SequenceDatabase(forward_overrides, add_reverse_complements=True)
-        for built in forward_overrides:
-            rc = seq_db.get_reverse_complement(built)
-            original = self._original_by_override[id(built)]
-            self._original_by_override[id(rc)] = original.reverse_complement()
-        if self.output_path is not None:
-            from mapper_tpu_torch.io.fastx import FastaWriter
-
-            writer = FastaWriter(self.output_path)
+        with tracer.span("ancestry.emit"):
+            forward_overrides = []
+            for seq in self.reference:
+                if seq.complemented_from is None:
+                    tracer.count("ancestry.bases_widened", len(self.overrides[id(seq)].values))
+                    built = self.overrides[id(seq)].build()
+                    forward_overrides.append(built)
+                    self._original_by_override[id(built)] = seq
+            seq_db = SequenceDatabase(forward_overrides, add_reverse_complements=True)
             for built in forward_overrides:
-                writer.write(built)
-            writer.close()
-        return HashBlockDatabase(seq_db, enable_gapmers=self.enable_gapmers)
+                rc = seq_db.get_reverse_complement(built)
+                original = self._original_by_override[id(built)]
+                self._original_by_override[id(rc)] = original.reverse_complement()
+            if self.output_path is not None:
+                from mapper_tpu_torch.io.fastx import FastaWriter
+
+                writer = FastaWriter(self.output_path)
+                for built in forward_overrides:
+                    writer.write(built)
+                writer.close()
+        with tracer.span("ancestry.index"):
+            return HashBlockDatabase(seq_db, enable_gapmers=self.enable_gapmers)
 
     def _entries_for(self, sequence: Sequence):
         cached = self._entries_cache.get(id(sequence))

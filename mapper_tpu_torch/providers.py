@@ -5,6 +5,7 @@ QueriesIterator.java and SequenceSplitter.java."""
 
 from __future__ import annotations
 
+from mapper_tpu_torch import trace
 from mapper_tpu_torch.align.query import QueryBuilder
 from mapper_tpu_torch.io.fastx import SequenceProvider
 from mapper_tpu_torch.sequence import SequenceBuilder
@@ -12,11 +13,14 @@ from mapper_tpu_torch.sequence import SequenceBuilder
 
 class SequenceSplitter(SequenceProvider):
     """Chops reads longer than `max_size` into <= max_size even chunks
-    (SequenceSplitter.java:9-46; --split-queries-past-size)."""
+    (SequenceSplitter.java:9-46; --split-queries-past-size).  `tracer`
+    counts the reads it splits (`split.reads`) and the pieces it makes of
+    them (`split.pieces`)."""
 
-    def __init__(self, max_size: int, provider: SequenceProvider):
+    def __init__(self, max_size: int, provider: SequenceProvider, tracer=trace.OFF):
         self.max_size = max_size
         self.provider = provider
+        self.tracer = tracer
         self._pending: list[SequenceBuilder] = []
 
     def get_next_sequence(self) -> SequenceBuilder | None:
@@ -30,6 +34,8 @@ class SequenceSplitter(SequenceProvider):
             return builder
         sequence = builder.build()
         num_chunks = (length + self.max_size - 1) // self.max_size
+        self.tracer.count("split.reads", 1)
+        self.tracer.count("split.pieces", num_chunks)
         prev = 0
         for i in range(1, num_chunks + 1):
             end = length * i // num_chunks

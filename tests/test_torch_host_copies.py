@@ -86,16 +86,52 @@ def barrier(name: str) -> None:
     dist.barrier()
 '''
 
-def _port_method(module: str, cls: str, name: str) -> str:
-    """The source text of a method the port's copy adds, indented as in
+def renamed(text: str) -> str:
+    """The package rename; the copies also name reference files without the
+    absolute location of the reference's source tree."""
+    text = re.sub(r"/[\w/]*/src/main/java/mapper/", "", text)
+    text = re.sub(r"\bmapper_tpu\.", "mapper_tpu_torch.", text)
+    return re.sub(r"\bfrom mapper_tpu import\b", "from mapper_tpu_torch import", text)
+
+
+def _method(package: Path, module: str, cls: str, name: str) -> str:
+    """The source text of a method of a package's module, indented as in
     the file."""
-    text = (PORT / module).read_text()
+    text = (package / module).read_text()
     for node in ast.parse(text).body:
         if isinstance(node, ast.ClassDef) and node.name == cls:
             for item in node.body:
                 if isinstance(item, ast.FunctionDef) and item.name == name:
                     return "    " + ast.get_source_segment(text, item)
     raise LookupError(f"{module}: {cls}.{name} not found")
+
+
+def untraced(text: str) -> str:
+    """`text` with the tracer (`trace.py`) taken out: the `tracer =
+    self.tracer` and `tracer.count(...)` lines dropped, and the body of each
+    `with tracer.span(...):` put back at the indentation of its `with`."""
+    out, opened = [], []  # opened: the indentation of each open `with`
+    for line in text.splitlines(keepends=True):
+        stripped = line.strip()
+        indent = len(line) - len(line.lstrip())
+        while opened and stripped and indent <= opened[-1]:
+            opened.pop()
+        if re.fullmatch(r"tracer = self\.tracer|tracer\.count\(.*\)", stripped):
+            continue
+        if re.fullmatch(r"with tracer\.span\(.*\):", stripped):
+            opened.append(indent)
+            continue
+        out.append(line[4 * len(opened):] if stripped else line)
+    return "".join(out)
+
+
+def _traced_method(module: str, cls: str, name: str) -> str:
+    """The port's method where it is the renamed original once its tracer is
+    taken out (`untraced`); else the original, so that the copy's
+    comparison fails."""
+    original = renamed(_method(JAX_PACKAGE, module, cls, name))
+    port = _method(PORT, module, cls, name)
+    return port if untraced(port) == original else original
 
 
 # module -> (text of the renamed original, text of the port's copy)
@@ -244,7 +280,7 @@ from mapper_tpu_torch.native import pileup as native_pileup
 """,
         """        return {p.sequence: p for p in pileups}
 
-""" + _port_method("pileup.py", "MatchDatabase", "_accumulate_native") + """
+""" + _method(PORT, "pileup.py", "MatchDatabase", "_accumulate_native") + """
 
 """,
     ), (
@@ -329,6 +365,66 @@ from mapper_tpu_torch.native import pileup as native_pileup
             entry[0] += w
 """,
     )],
+    # the splitter counts the reads it splits and their pieces for the
+    # tracer (`trace.py`); `OFF` by default, as for every other caller
+    "providers.py": [(
+        """from mapper_tpu_torch.align.query import QueryBuilder
+""",
+        """from mapper_tpu_torch import trace
+from mapper_tpu_torch.align.query import QueryBuilder
+""",
+    ), (
+        """    (SequenceSplitter.java:9-46; --split-queries-past-size).\"\"\"
+
+    def __init__(self, max_size: int, provider: SequenceProvider):
+        self.max_size = max_size
+        self.provider = provider
+""",
+        """    (SequenceSplitter.java:9-46; --split-queries-past-size).  `tracer`
+    counts the reads it splits (`split.reads`) and the pieces it makes of
+    them (`split.pieces`).\"\"\"
+
+    def __init__(self, max_size: int, provider: SequenceProvider, tracer=trace.OFF):
+        self.max_size = max_size
+        self.provider = provider
+        self.tracer = tracer
+""",
+    ), (
+        """        num_chunks = (length + self.max_size - 1) // self.max_size
+""",
+        """        num_chunks = (length + self.max_size - 1) // self.max_size
+        self.tracer.count("split.reads", 1)
+        self.tracer.count("split.pieces", num_chunks)
+""",
+    )],
+    # the ancestry inference's stages run under the tracer's spans, and
+    # count the duplications walked and the bases widened; without them the
+    # inference is the original's, line for line (`_traced_method`)
+    "index/ancestry.py": [(
+        """from mapper_tpu_torch import basepairs
+""",
+        """from mapper_tpu_torch import basepairs, trace
+""",
+    ), (
+        """        enable_gapmers: bool = True,
+    ):
+""",
+        """        enable_gapmers: bool = True,
+        tracer=trace.OFF,
+    ):
+""",
+    ), (
+        """        self.enable_gapmers = enable_gapmers
+        self.overrides""",
+        """        self.enable_gapmers = enable_gapmers
+        # spans of the inference's stages (`ancestry.detect`, `.walk`,
+        # `.emit`, `.index`) and counters of its duplications and bases
+        self.tracer = tracer
+        self.overrides""",
+    ), (
+        renamed(_method(JAX_PACKAGE, "index/ancestry.py", "AncestryDetector", "_union_recent_ancestors")),
+        _traced_method("index/ancestry.py", "AncestryDetector", "_union_recent_ancestors"),
+    )],
     # torch.distributed (gloo) links the processes in place of
     # jax.distributed; the rest of the module is the host copy
     "parallel/multihost.py": [(
@@ -361,14 +457,6 @@ for barriers; result merging is:""",
 }
 
 
-def renamed(text: str) -> str:
-    """The package rename; the copies also name reference files without the
-    absolute location of the reference's source tree."""
-    text = re.sub(r"/[\w/]*/src/main/java/mapper/", "", text)
-    text = re.sub(r"\bmapper_tpu\.", "mapper_tpu_torch.", text)
-    return re.sub(r"\bfrom mapper_tpu import\b", "from mapper_tpu_torch import", text)
-
-
 @pytest.mark.parametrize("module", MODULES)
 def test_copy_equals_the_renamed_original(module):
     want = renamed((JAX_PACKAGE / module).read_text())
@@ -376,6 +464,13 @@ def test_copy_equals_the_renamed_original(module):
         assert want.count(original) == 1, f"{module}: the intended difference no longer applies"
         want = want.replace(original, port)
     assert (PORT / module).read_text() == want
+
+
+def test_the_ancestry_inference_is_the_original_without_its_tracer():
+    port = _method(PORT, "index/ancestry.py", "AncestryDetector", "_union_recent_ancestors")
+    assert "tracer.span(" in port
+    assert untraced(port) == renamed(_method(JAX_PACKAGE, "index/ancestry.py", "AncestryDetector",
+                                             "_union_recent_ancestors"))
 
 
 @pytest.mark.parametrize("source", NATIVE_SOURCES)

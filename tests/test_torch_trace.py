@@ -1,8 +1,9 @@
 """The port's spans and counters (`mapper_tpu_torch/trace.py`): tiny CLI runs
-on the CPU, single-end and paired, traced with `MAPPER_TPU_TRACE=1` and not;
-the `[trace]` line's form, the spans' nesting and names, the counters (the
-pileup's among them), and outputs that tracing leaves byte for byte as they
-were."""
+on the CPU, single-end, paired, and long reads split into pieces against an
+inferred ancestor, traced with `MAPPER_TPU_TRACE=1` and not; the `[trace]`
+line's form, the spans' nesting and names, the counters (the pileup's, the
+splitter's and the ancestry inference's among them), and outputs that
+tracing leaves byte for byte as they were."""
 
 import contextlib
 import io
@@ -12,8 +13,9 @@ import threading
 import numpy as np
 import pytest
 
-from benchmarks.simlib import random_reference, rc_text, write_reference
+from benchmarks.simlib import mutate, random_reference, rc_text, write_reference
 from mapper_tpu_torch import cli, trace
+from mapper_tpu_torch.index.ancestry import AncestryDetector
 from mapper_tpu_torch.simulate import simulate_reads, write_fastq
 
 OUTPUTS = {"--out-sam": "out.sam", "--out-mutations": "mutations.txt", "--out-vcf": "out.vcf"}
@@ -21,9 +23,14 @@ CLI_SPANS = {"cli.main", "cli.reference", "cli.index", "cli.engine", "cli.dup_sc
              "cli.parse", "cli.wait", "cli.listeners", "cli.pileup", "cli.write", "cli.report"}
 ENGINE_SPANS = {"engine.batch", "engine.cache", "engine.triage", "engine.candidates", "engine.certificate",
                 "engine.dispatch", "engine.fetch", "engine.decide", "engine.fallback"}
+ANCESTRY_SPANS = {"ancestry.source_index", "ancestry.detect", "ancestry.walk", "ancestry.emit", "ancestry.index"}
 # every span the port records: README.md's table
-DOCUMENTED = CLI_SPANS | ENGINE_SPANS | {"engine.pairing", "engine.pair_exact"}
+DOCUMENTED = CLI_SPANS | ENGINE_SPANS | ANCESTRY_SPANS | {"engine.pairing", "engine.pair_exact"}
 LEGACY = "[engine] decisions+emit: "
+KINDS = ("single", "paired", "ancestry")
+SPLIT = 1500
+# the long reads' lengths: at, under and past the split size
+LONG_LENGTHS = (900, 1500, 1501, 2999, 3000, 4100)
 
 
 @pytest.fixture(scope="module")
@@ -45,21 +52,48 @@ def inputs(tmp_path_factory):
         mates2.append((f"p{i}/2", rc_text(frag[-100:])))
     write_fastq(root / "m1.fastq", mates1)
     write_fastq(root / "m2.fastq", mates2)
+    # a reference whose first 4 kb has three copies at 2% SNPs (config 5's
+    # shape, BASELINE.md), and long reads of both strands, two of each length
+    base = random_reference(rng, 36_000)
+    segment = np.array(list(base[:4000]))
+    planted = base + "".join("".join(mutate(rng, segment, 0.02)) for _ in range(3))
+    write_reference(str(root / "planted.fasta"), {"chrA": planted})
+    long_reads = []
+    for length in LONG_LENGTHS:
+        for k in range(2):
+            pos = int(rng.integers(0, len(planted) - length))
+            text = "".join(mutate(rng, np.array(list(planted[pos : pos + length])), 0.02))
+            long_reads.append((f"l{length}_{k}", rc_text(text) if k else text))
+    write_fastq(root / "long.fastq", long_reads)
     return root
 
 
+def _pieces(length):
+    return -(-length // SPLIT) if length > SPLIT else 1
+
+
 def _query_args(inputs, kind):
+    """(reference, the query flags, queries the engine sees)."""
     if kind == "single":
-        return ["--queries", str(inputs / "reads.fastq")], 308
-    return ["--paired-queries", str(inputs / "m1.fastq"), str(inputs / "m2.fastq"), "--spacing", "100", "50"], 60
+        return inputs / "ref.fasta", ["--queries", str(inputs / "reads.fastq")], 308
+    if kind == "paired":
+        return inputs / "ref.fasta", ["--paired-queries", str(inputs / "m1.fastq"), str(inputs / "m2.fastq"),
+                                      "--spacing", "100", "50"], 60
+    return inputs / "planted.fasta", ["--split-queries-past-size", str(SPLIT), "--queries",
+                                      str(inputs / "long.fastq"), "--infer-ancestors"], \
+        2 * sum(_pieces(n) for n in LONG_LENGTHS)
+
+
+def _outputs(kind):
+    return {**OUTPUTS, "--out-ancestor": "ancestor.fasta"} if kind == "ancestry" else OUTPUTS
 
 
 def _run(inputs, out_dir, kind, traced, sam="file"):
     """One CLI run: (outputs' bytes, stdout, stderr)."""
     out_dir.mkdir()
-    query_args, _ = _query_args(inputs, kind)
-    args = ["--reference", str(inputs / "ref.fasta"), *query_args, "--devices", "1"]
-    for flag, name in OUTPUTS.items():
+    reference, query_args, _ = _query_args(inputs, kind)
+    args = ["--reference", str(reference), *query_args, "--devices", "1"]
+    for flag, name in _outputs(kind).items():
         args += [flag, "-" if (flag == "--out-sam" and sam == "stdout") else str(out_dir / name)]
     out, err = io.StringIO(), io.StringIO()
     with pytest.MonkeyPatch.context() as mp:
@@ -70,20 +104,30 @@ def _run(inputs, out_dir, kind, traced, sam="file"):
             mp.delenv("MAPPER_TPU_TRACE", raising=False)
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             assert cli.main(args) == 0
-    files = {name: (out_dir / name).read_bytes() for name in OUTPUTS.values() if (out_dir / name).exists()}
+    files = {name: (out_dir / name).read_bytes() for name in _outputs(kind).values() if (out_dir / name).exists()}
     return files, out.getvalue(), err.getvalue()
 
 
 @pytest.fixture(scope="module")
 def runs(inputs, tmp_path_factory):
-    """Each kind traced and untraced, and a traced single-end run with the
-    SAM on stdout."""
+    """Each kind traced and untraced, a traced single-end run with the SAM
+    on stdout, and the ancestry detector of the traced ancestry run."""
     root = tmp_path_factory.mktemp("trace_runs")
     done = {}
-    for kind in ("single", "paired"):
-        for traced in (False, True):
-            done[kind, traced] = _run(inputs, root / f"{kind}_{traced}", kind, traced)
+    seen = []
+    original = AncestryDetector.get_hashblock_database
+
+    def keep(detector):
+        seen.append(detector)
+        return original(detector)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(AncestryDetector, "get_hashblock_database", keep)
+        for kind in KINDS:
+            for traced in (False, True):
+                done[kind, traced] = _run(inputs, root / f"{kind}_{traced}", kind, traced)
     done["single", "stdout"] = _run(inputs, root / "single_stdout", "single", True, sam="stdout")
+    (done["ancestry", "detector"],) = seen[1:]  # the traced run's (the untraced run's is first)
     return done
 
 
@@ -96,7 +140,7 @@ def _spans(stderr):
     return record, [dict(zip(("name", "thread", "t0", "t1", "cpu", "parent", "batch"), s)) for s in record["spans"]]
 
 
-@pytest.mark.parametrize("kind", ["single", "paired"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_untraced_run_writes_no_trace_line(runs, kind, monkeypatch):
     _, stdout, stderr = runs[kind, False]
     assert "[trace]" not in stderr and LEGACY not in stdout
@@ -106,13 +150,13 @@ def test_untraced_run_writes_no_trace_line(runs, kind, monkeypatch):
     assert tracer.count("reads.single", 1) is None
 
 
-@pytest.mark.parametrize("kind", ["single", "paired"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_traced_run_writes_the_untraced_bytes(runs, kind):
     plain, traced = runs[kind, False][0], runs[kind, True][0]
-    assert set(plain) == set(OUTPUTS.values()) and plain == traced
+    assert set(plain) == set(_outputs(kind).values()) and plain == traced
 
 
-@pytest.mark.parametrize("kind", ["single", "paired"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_trace_line_parses_and_spans_nest(runs, kind):
     record, spans = _spans(runs[kind, True][2])
     assert record["clock"] == "perf_counter" and spans
@@ -132,7 +176,7 @@ def test_trace_line_parses_and_spans_nest(runs, kind):
     assert all(s["batch"] in waited for s in spans if s["name"].startswith("engine."))
 
 
-@pytest.mark.parametrize("kind", ["single", "paired"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_span_names_are_the_documented_set(runs, kind):
     _, spans = _spans(runs[kind, True][2])
     names = {s["name"] for s in spans}
@@ -140,17 +184,60 @@ def test_span_names_are_the_documented_set(runs, kind):
     assert CLI_SPANS | ENGINE_SPANS - {"engine.fallback"} <= names
     if kind == "paired":
         assert {"engine.pairing", "engine.decide"} <= names
-    else:
+    elif kind == "single":
         assert "engine.fallback" in names and "engine.pairing" not in names
+    if kind == "ancestry":
+        assert ANCESTRY_SPANS <= names
+    else:  # runs without --infer-ancestors open no ancestry span
+        assert not any(n.startswith("ancestry.") for n in names)
 
 
-@pytest.mark.parametrize("kind", ["single", "paired"])
+def test_ancestry_spans_nest_under_the_index_span(runs):
+    """Once each, on the main thread, directly inside `cli.index`, in the
+    inference's order."""
+    _, spans = _spans(runs["ancestry", True][2])
+    (index,) = [i for i, s in enumerate(spans) if s["name"] == "cli.index"]
+    ancestry = [s for s in spans if s["name"].startswith("ancestry.")]
+    assert [s["name"] for s in ancestry] == ["ancestry.source_index", "ancestry.detect", "ancestry.walk",
+                                             "ancestry.emit", "ancestry.index"]
+    assert all(s["parent"] == index and s["thread"] == spans[index]["thread"] for s in ancestry)
+    assert all(a["t1"] <= b["t0"] for a, b in zip(ancestry, ancestry[1:]))
+
+
+def test_split_counters_count_the_reads_past_the_split_size(runs):
+    record, _ = _spans(runs["ancestry", True][2])
+    counts = record["counts"]
+    past = [n for n in LONG_LENGTHS if n > SPLIT]
+    assert counts["split.reads"] == 2 * len(past)
+    assert counts["split.pieces"] == 2 * sum(-(-n // SPLIT) for n in past)
+    for kind in ("single", "paired"):
+        assert not any(k.startswith(("split.", "ancestry.")) for k in _spans(runs[kind, True][2])[0]["counts"])
+
+
+def test_ancestry_counters_count_the_duplications_and_the_widened_bases(inputs, runs):
+    """`ancestry.duplications` is the detector's count; `ancestry.bases_widened`
+    the positions at which the written ancestor differs from the reference."""
+    record, _ = _spans(runs["ancestry", True][2])
+    counts = record["counts"]
+    detector = runs["ancestry", "detector"]
+    assert counts["ancestry.duplications"] == len(detector.duplication_detector.get_all()) > 0
+
+    def bases(fasta: bytes):
+        return np.frombuffer(b"".join(fasta.splitlines()[1:]), dtype=np.uint8)
+
+    reference = bases((inputs / "planted.fasta").read_bytes())
+    ancestor = bases(runs["ancestry", True][0]["ancestor.fasta"])
+    assert reference.shape == ancestor.shape
+    assert counts["ancestry.bases_widened"] == int((reference != ancestor).sum()) > 0
+
+
+@pytest.mark.parametrize("kind", KINDS)
 def test_counters_add_up(inputs, runs, kind):
     record, _ = _spans(runs[kind, True][2])
     counts = record["counts"]
-    _, reads = _query_args(inputs, kind)
+    _, _, reads = _query_args(inputs, kind)
     assert counts.get("reads.single", 0) + counts.get("reads.paired", 0) == reads
-    assert counts["reads." + kind] == reads
+    assert counts["reads." + ("single" if kind == "ancestry" else kind)] == reads
     assert 0 < counts["rows.device"] <= counts["rows.candidates"]
     assert counts["cache.hits"] >= 0 and counts["cache.skips"] >= 0
     reasons = sum(v for k, v in counts.items() if k.startswith("fallback."))
@@ -160,7 +247,7 @@ def test_counters_add_up(inputs, runs, kind):
     assert not any(k.startswith("launches.") for k in counts)  # no kernel on the CPU
 
 
-@pytest.mark.parametrize("kind", ["single", "paired"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_pileup_counters_count_every_alignment(runs, kind):
     """Each component alignment is one SAM row, and the one native pass of
     `group_by_position` accumulated every one of them."""
