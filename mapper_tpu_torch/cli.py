@@ -590,6 +590,7 @@ def run(
             max_dup,
             min_num_interesting_copies=2,
             window_size=1000,
+            tracer=tracer,
         )
         reference_index.duplication_detector = approximate_dups
         # run the hash-bin duplication scan (seconds on a 4.6 Mb reference) on a

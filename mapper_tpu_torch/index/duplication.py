@@ -24,7 +24,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from mapper_tpu_torch import basepairs
+from mapper_tpu_torch import basepairs, trace
+from mapper_tpu_torch.native import dupscan as native_dupscan
 from mapper_tpu_torch.sequence import Sequence, SequenceDatabase
 
 
@@ -50,6 +51,7 @@ class DuplicationDetector:
         min_num_interesting_copies: int = 2,
         window_size: int = 1,
         cache_dir=None,
+        tracer=trace.OFF,
     ):
         from mapper_tpu_torch.index.database import (
             choose_max_duplication_length,
@@ -68,6 +70,7 @@ class DuplicationDetector:
         self.min_num_interesting_copies = min_num_interesting_copies
         self.window_size = window_size
         self.enable_gapmers = hashblock_database.get_enable_gapmers()
+        self.tracer = tracer
         self._detected = False
         # per sequence index: sorted list of (startIndex, Duplication)
         self._by_sequence: dict[int, list[tuple[int, Duplication]]] = {}
@@ -228,6 +231,10 @@ class DuplicationDetector:
         m = self.database._map_for(block_length)
         if m is None or m.capacity == 0:
             return
+        # one native pass groups the bins; the vectorized pass below is its
+        # fallback where the library cannot be built or refuses the input
+        if self._process_length_native(block_length, m, concat):
+            return
         # bins with >= minCopies stored forward positions and not overflowed
         interesting = np.nonzero(
             (m.counts >= self.min_num_interesting_copies)
@@ -247,6 +254,7 @@ class DuplicationDetector:
         total = int(bin_counts.sum())
         if total == 0:
             return
+        self.tracer.count("dupscan.rows", 2 * total)
         row_bin = np.repeat(np.arange(interesting.shape[0], dtype=np.int64), bin_counts)
         within = np.arange(total, dtype=np.int64) - np.repeat(
             np.cumsum(bin_counts) - bin_counts, bin_counts
@@ -291,6 +299,31 @@ class DuplicationDetector:
             for pos in dup.positions:
                 pending.append((pos, dup))
         self._insert(pending)
+
+    def _process_length_native(self, block_length: int, m, concat: np.ndarray) -> bool:
+        """The vectorized pass's groups from one native call
+        (native/dupscan.cpp), in its order, handed to `_insert` as it hands
+        them; False, with nothing done, where the library is unavailable or
+        refuses the input."""
+        grouped = native_dupscan.group(
+            m, self.min_num_interesting_copies, block_length, concat,
+            self.sequence_database.starts, self.database._seq_lengths, self.database._rc_index,
+        )
+        if grouped is None:
+            return False
+        rows, sizes, positions = grouped
+        self.tracer.count("dupscan.rows", rows)
+        self.tracer.count("dupscan.native_rows", rows)
+        positions = positions.tolist()
+        pending: list[tuple[int, Duplication]] = []
+        cursor = 0
+        for size in sizes.tolist():
+            dup = Duplication(block_length, positions[cursor : cursor + size])
+            cursor += size
+            for pos in dup.positions:
+                pending.append((pos, dup))
+        self._insert(pending)
+        return True
 
     def _insert(self, pending: list[tuple[int, Duplication]]) -> None:
         """saveDuplications (java:332-400): maintain, per sequence, the set of

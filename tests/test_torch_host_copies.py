@@ -454,6 +454,61 @@ for barriers; result merging is:""",
         )
 """,
     )],
+    # one native pass a block length (native/dupscan.cpp) groups the
+    # interesting bins by edge text, with counters for the tracer; the
+    # vectorized pass remains as its fallback, `_insert` and the cache as
+    # they were
+    "index/duplication.py": [(
+        """from mapper_tpu_torch import basepairs
+""",
+        """from mapper_tpu_torch import basepairs, trace
+from mapper_tpu_torch.native import dupscan as native_dupscan
+""",
+    ), (
+        """        cache_dir=None,
+    ):
+""",
+        """        cache_dir=None,
+        tracer=trace.OFF,
+    ):
+""",
+    ), (
+        """        self.enable_gapmers = hashblock_database.get_enable_gapmers()
+""",
+        """        self.enable_gapmers = hashblock_database.get_enable_gapmers()
+        self.tracer = tracer
+""",
+    ), (
+        """            return
+        # bins with >= minCopies stored forward positions and not overflowed
+""",
+        """            return
+        # one native pass groups the bins; the vectorized pass below is its
+        # fallback where the library cannot be built or refuses the input
+        if self._process_length_native(block_length, m, concat):
+            return
+        # bins with >= minCopies stored forward positions and not overflowed
+""",
+    ), (
+        """        if total == 0:
+            return
+""",
+        """        if total == 0:
+            return
+        self.tracer.count("dupscan.rows", 2 * total)
+""",
+    ), (
+        # the native pass's intake, the port's own code (its results are
+        # held against the JAX package by tests/test_torch_dupscan_native.py)
+        """        self._insert(pending)
+
+    def _insert(""",
+        """        self._insert(pending)
+
+""" + _method(PORT, "index/duplication.py", "DuplicationDetector", "_process_length_native") + """
+
+    def _insert(""",
+    )],
 }
 
 

@@ -2,8 +2,8 @@
 on the CPU, single-end, paired, and long reads split into pieces against an
 inferred ancestor, traced with `MAPPER_TPU_TRACE=1` and not; the `[trace]`
 line's form, the spans' nesting and names, the counters (the pileup's, the
-splitter's and the ancestry inference's among them), and outputs that
-tracing leaves byte for byte as they were."""
+splitter's, the ancestry inference's and the duplication scan's among
+them), and outputs that tracing leaves byte for byte as they were."""
 
 import contextlib
 import io
@@ -256,6 +256,16 @@ def test_pileup_counters_count_every_alignment(runs, kind):
     rows = [line for line in sam.splitlines() if not line.startswith("@")]
     counts = record["counts"]
     assert counts["pileup.alignments"] == counts["pileup.native"] == len(rows) > 0
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_dupscan_counters_count_the_native_rows(runs, kind):
+    """The two-copy duplication scan over the index the run aligns to (with
+    `--infer-ancestors`, the planted reference's inferred ancestor) grouped
+    every row it gathered in its one native pass."""
+    record, _ = _spans(runs[kind, True][2])
+    counts = record["counts"]
+    assert counts["dupscan.native_rows"] == counts["dupscan.rows"] > 0
 
 
 def test_legacy_decide_line_once_per_single_end_chunk(runs):
