@@ -49,9 +49,9 @@ Phases (each raises on failure; nothing is caught):
    main path (the default CLI run), its launch counts read around it alone;
    banded_i16 must launch there and banded_f32 in the second; at least 99%
    of reads must align, and SAM, VCF and mutations must
-   be byte-identical to the same runs scored by the exact native DP on the
-   host (MAPPER_TPU_HOST_SCORING=1, with the ceiling raised to 1,024 bp so
-   the long reads are host-scored too), which must launch no kernel;
+   be byte-identical to the same runs on the CPU (MAPPER_TPU_TORCH_DEVICE=
+   cpu: the kernels' plain versions, the port's reference for every
+   kernel), which must launch no kernel;
 6. the device pileup: the 100,000-read run again with
    MAPPER_TPU_DEVICE_PILEUP=1, launch counts read around it.  banded_i16
    must launch, rows must have been counted on the card, and SAM, VCF and
@@ -76,12 +76,12 @@ Phases (each raises on failure; nothing is caught):
    fused, launch counts read around each fused run: every single-end chunk
    must take the fused path, KC1 and KC2 launch once a fused chunk, K1
    launches in the first and K2 in the second, and SAM, VCF and mutations
-   must be byte-identical to the host-scored twins;
+   must be byte-identical to the CPU-scored twins;
 8. a paired run in config 3's shape (20,000 pairs of 2 x 150 bp from
    `benchmarks.simlib.simulate_paired`, --spacing 100 50) and a
    --split-queries-past-size 1500 run (500 reads of 3,000 bp, scored in
    1,500 bp pieces by banded_f32), launch counts read around each, each
-   byte-identical to its host-scored twin, and the split run again on the
+   byte-identical to its CPU-scored twin, and the split run again on the
    fused path (every chunk fused, KC1 and KC2 once a fused chunk),
    byte-identical too.  Pairs take the paired path on the fused setting as
    well, as in the JAX engine: phase 7's paired_mates chunk holds KC1 and
@@ -89,7 +89,7 @@ Phases (each raises on failure; nothing is caught):
    `benchmarks/bench_config4_metagenomic.py` and `bench_config5_longreads.py`
    build them (`simulate_config4`, `simulate_config5`), each with its launch
    counts read around it and every output it writes byte-identical to its
-   host-scored twin: config 4, 4 genomes of 1 Mb, pairs drawn
+   CPU-scored twin: config 4, 4 genomes of 1 Mb, pairs drawn
    abundance-skewed 2^-g, `--paired-queries --spacing 100 50
    --out-refs-map-count --out-sam` (and `--out-unaligned`), cut from the
    config's 1,000,000 pairs to 20,000 for the smoke's time, banded_i16 must
@@ -117,11 +117,9 @@ Phases (each raises on failure; nothing is caught):
    arguments (torch.equal) and to the int16 plain version on the card, timed
    by CUDA events; `graft_entry.dryrun_multichip(1)`, its five checks on the
    card, launch counts read around it; and `python -m mapper_tpu_torch.bench`
-   as four subprocesses in turns, kernel-scored and host-scored
-   (`MAPPER_TPU_HOST_SCORING=1`): kernel, host, host, kernel, with the
-   engine's default settings.  Each run's JSON line is printed; each aligns
-   at least 99% of its reads; the host-scored runs launch no kernel; the
-   kernel-scored runs' launches (the bench's count around its timed passes)
+   as two subprocesses, one after the other, with the engine's default
+   settings.  Each run's JSON line is printed; each aligns at least 99% of
+   its reads; their launches (the bench's count around its timed passes)
    are recorded under the path `bench`.
 
 The entry points' numbers are printed as one JSON line
@@ -153,10 +151,6 @@ from pathlib import Path
 # either fails from here on
 sys.modules["jax"] = None
 sys.modules["mapper_tpu"] = None
-# the host-scored twins score every read on the host, the 1,000 bp ones and
-# the 1,500 bp pieces of the split-query run too (the engine reads this
-# ceiling when it is imported; it defaults to 600 bp)
-os.environ["MAPPER_TPU_HOST_SCORING_MAX_LEN"] = "2048"
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 KERNEL_SOURCE = "mapper_tpu_torch/align/csrc/banded_dp.cu"
@@ -807,9 +801,10 @@ OUTPUTS = {
 }
 
 
-def run_cli(root: Path, query_args: list[str], tag: str, host_scoring: bool,
+def run_cli(root: Path, query_args: list[str], tag: str, on_cpu: bool = False,
             outputs: tuple[str, ...] = tuple(OUTPUTS)) -> dict:
-    """One CLI run against `root`/ref.fasta, writing `outputs` (all five by
+    """One CLI run against `root`/ref.fasta on the card, or with `on_cpu` on
+    the CPU (the kernels' plain versions), writing `outputs` (all five by
     default); returns their bytes and the align-phase numbers."""
     from mapper_tpu_torch import cli
 
@@ -821,21 +816,14 @@ def run_cli(root: Path, query_args: list[str], tag: str, host_scoring: bool,
         *(x for name in outputs for x in (OUTPUTS[name][0], str(out / OUTPUTS[name][1]))),
         "--cache-dir", str(root / "index_cache"),
     ]
-    env_before = os.environ.get("MAPPER_TPU_HOST_SCORING")
-    if host_scoring:
-        os.environ["MAPPER_TPU_HOST_SCORING"] = "1"
-    else:
-        os.environ.pop("MAPPER_TPU_HOST_SCORING", None)
+    os.environ["MAPPER_TPU_TORCH_DEVICE"] = "cpu" if on_cpu else "cuda"
     log = io.StringIO()
     t0 = time.time()
     try:
         with contextlib.redirect_stderr(log):
             rc = cli.main(args)
     finally:
-        if env_before is None:
-            os.environ.pop("MAPPER_TPU_HOST_SCORING", None)
-        else:
-            os.environ["MAPPER_TPU_HOST_SCORING"] = env_before
+        os.environ["MAPPER_TPU_TORCH_DEVICE"] = "cuda"
     wall = time.time() - t0
     if rc != 0:
         raise AssertionError(f"{tag}: CLI returned {rc}\n{log.getvalue()[-3000:]}")
@@ -872,17 +860,17 @@ def run_cli(root: Path, query_args: list[str], tag: str, host_scoring: bool,
 
 def cli_phase(root: Path, kernels) -> tuple[dict, dict, dict]:
     """The CLI path: kernel-scored CLI runs (launches counted) and their
-    host-scored twins (which launch nothing).  The main path is the first:
+    CPU-scored twins (which launch nothing).  The main path is the first:
     100,000 single-end 150 bp reads, the default CLI run, its launch counts
     read around it alone.  Returns the launch counts of the main path and of
     both kernel runs, and the runs by tag."""
     kernels.reset_launches()
-    short = run_cli(root, SHORT, "short_kernel", host_scoring=False)
+    short = run_cli(root, SHORT, "short_kernel")
     main_launches = dict(kernels.LAUNCHES)
     print(f"[cli] kernel launches in the main path (100,000 reads of 150 bp): {main_launches}", flush=True)
     if main_launches["banded_i16"] <= 0:
         raise AssertionError("banded_i16 was not launched by the main path")
-    long_ = run_cli(root, LONG, "long_kernel", host_scoring=False)
+    long_ = run_cli(root, LONG, "long_kernel")
     launches = dict(kernels.LAUNCHES)
     print(f"[cli] kernel launches in both kernel-scored CLI runs: {launches}", flush=True)
     for name in ("banded_i16", "banded_f32"):  # the engine's gathered scorer
@@ -892,14 +880,14 @@ def cli_phase(root: Path, kernels) -> tuple[dict, dict, dict]:
         if run["aligned_fraction"] < 0.99:
             raise AssertionError(f"aligned fraction {run['aligned_fraction']} < 0.99")
     kernels.reset_launches()
-    short_host = run_cli(root, SHORT, "short_host", host_scoring=True)
-    long_host = run_cli(root, LONG, "long_host", host_scoring=True)
+    short_cpu = run_cli(root, SHORT, "short_cpu", on_cpu=True)
+    long_cpu = run_cli(root, LONG, "long_cpu", on_cpu=True)
     if any(kernels.LAUNCHES.values()):
-        raise AssertionError(f"the host-scored runs launched kernels: {kernels.LAUNCHES}")
-    print("[cli] host-scored runs launched no kernel", flush=True)
-    for kernel_run, host_run, tag in ((short, short_host, "short"), (long_, long_host, "long")):
-        same_outputs(kernel_run, host_run, f"{tag}: the kernel-scored run vs the host-scored run")
-    runs = {"short_kernel": short, "long_kernel": long_, "short_host": short_host, "long_host": long_host}
+        raise AssertionError(f"the CPU-scored runs launched kernels: {kernels.LAUNCHES}")
+    print("[cli] CPU-scored runs launched no kernel", flush=True)
+    for kernel_run, cpu_run, tag in ((short, short_cpu, "short"), (long_, long_cpu, "long")):
+        same_outputs(kernel_run, cpu_run, f"{tag}: the kernel-scored run vs the CPU-scored run")
+    runs = {"short_kernel": short, "long_kernel": long_, "short_cpu": short_cpu, "long_cpu": long_cpu}
     return main_launches, launches, runs
 
 
@@ -925,7 +913,7 @@ def device_pileup_phase(root: Path, kernels, short: dict) -> dict:
     kernels.reset_launches()
     os.environ["MAPPER_TPU_DEVICE_PILEUP"] = "1"
     try:
-        run = run_cli(root, SHORT, "short_device_pileup", host_scoring=False)
+        run = run_cli(root, SHORT, "short_device_pileup")
     finally:
         os.environ.pop("MAPPER_TPU_DEVICE_PILEUP", None)
     launches = dict(kernels.LAUNCHES)
@@ -1305,12 +1293,12 @@ def fused_run(root: Path, kernels, query_args: list[str], tag: str, twin: dict) 
     """One CLI run on the fused path (MAPPER_TPU_DEVICE_CANDIDATES=1),
     launch counts read around it: every single-end chunk takes the fused
     path, KC1 and KC2 launch once a fused chunk, and SAM, VCF and mutations
-    equal the host-scored twin's.  Returns the
+    equal the CPU-scored twin's.  Returns the
     run and its launch counts."""
     kernels.reset_launches()
     os.environ["MAPPER_TPU_DEVICE_CANDIDATES"] = "1"
     try:
-        run = run_cli(root, query_args, tag, host_scoring=False)
+        run = run_cli(root, query_args, tag)
     finally:
         os.environ.pop("MAPPER_TPU_DEVICE_CANDIDATES", None)
     counts = dict(kernels.LAUNCHES)
@@ -1321,7 +1309,7 @@ def fused_run(root: Path, kernels, query_args: list[str], tag: str, twin: dict) 
     for name in ("candidates", "fused_rows"):
         if counts[name] != fused:
             raise AssertionError(f"{tag}: {name} launched {counts[name]} times for {fused} fused chunks")
-    same_outputs(run, twin, f"{tag}: the fused run vs the host-scored run")
+    same_outputs(run, twin, f"{tag}: the fused run vs the CPU-scored run")
     return run, counts
 
 
@@ -1331,7 +1319,7 @@ def device_candidates_phase(root: Path, kernels, runs: dict) -> dict:
     CLI run of the process, phase 5's, is the warm-up), and the 1,000 bp run
     on the fused path once.  Every single-end chunk must take the fused
     path, KC1 and KC2 launch once a fused chunk, and SAM, VCF and mutations
-    are byte-identical to the host-scored twins.  Returns the launch counts
+    are byte-identical to the CPU-scored twins.  Returns the launch counts
     of the fused runs summed and the align phases in turn order."""
     launches, align = {}, {}
     turns = [("short_fused", True), ("short_kernel_turn", False), ("short_kernel_turn2", False),
@@ -1339,22 +1327,21 @@ def device_candidates_phase(root: Path, kernels, runs: dict) -> dict:
     align["short"] = []
     for tag, on_fused in turns:
         if on_fused:
-            run, counts = fused_run(root, kernels, SHORT, tag, runs["short_host"])
+            run, counts = fused_run(root, kernels, SHORT, tag, runs["short_cpu"])
             for name, n in counts.items():
                 launches[name] = launches.get(name, 0) + n
         else:
-            run = run_cli(root, SHORT, tag, host_scoring=False)
-            same_outputs(run, runs["short_host"], f"{tag}: the kernel-scored run vs the host-scored run")
+            run = run_cli(root, SHORT, tag)
+            same_outputs(run, runs["short_cpu"], f"{tag}: the kernel-scored run vs the CPU-scored run")
         align["short"].append({"run": tag, "fused": on_fused, "align_s": run["align_seconds"],
                                "wall_s": run["wall_seconds"]})
-    run, counts = fused_run(root, kernels, LONG, "long_fused", runs["long_host"])
+    run, counts = fused_run(root, kernels, LONG, "long_fused", runs["long_cpu"])
     if counts["banded_f32"] <= 0:
         raise AssertionError("long_fused: banded_f32 was not launched")
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
     align["long"] = {"fused_align_s": run["align_seconds"],
-                     "kernel_scored_align_s": runs["long_kernel"]["align_seconds"],
-                     "host_scored_align_s": runs["long_host"]["align_seconds"]}
+                     "kernel_scored_align_s": runs["long_kernel"]["align_seconds"]}
     fused_s = [r["align_s"] for r in align["short"] if r["fused"]]
     kernel_s = [r["align_s"] for r in align["short"] if not r["fused"]]
     align["short_fused_over_kernel"] = sum(fused_s) / sum(kernel_s)
@@ -1369,10 +1356,10 @@ def device_candidates_phase(root: Path, kernels, runs: dict) -> dict:
 def twin_phase(root: Path, kernels, query_args: list[str], tag: str, kernel: str,
                outputs: tuple[str, ...] = tuple(OUTPUTS)) -> tuple[dict, dict]:
     """One kernel-scored CLI run (launch counts read around it; `kernel` must
-    launch) and its host-scored twin (no launch), every output byte-identical.
+    launch) and its CPU-scored twin (no launch), every output byte-identical.
     Returns the kernel run's launch counts and the twin run."""
     kernels.reset_launches()
-    run = run_cli(root, query_args, f"{tag}_kernel", host_scoring=False, outputs=outputs)
+    run = run_cli(root, query_args, f"{tag}_kernel", outputs=outputs)
     launches = dict(kernels.LAUNCHES)
     print(f"[{tag}] kernel launches: {launches}", flush=True)
     if launches[kernel] <= 0:
@@ -1380,10 +1367,10 @@ def twin_phase(root: Path, kernels, query_args: list[str], tag: str, kernel: str
     if run["aligned_fraction"] < 0.99:
         raise AssertionError(f"{tag}: aligned fraction {run['aligned_fraction']} < 0.99")
     kernels.reset_launches()
-    twin = run_cli(root, query_args, f"{tag}_host", host_scoring=True, outputs=outputs)
+    twin = run_cli(root, query_args, f"{tag}_cpu", on_cpu=True, outputs=outputs)
     if any(kernels.LAUNCHES.values()):
-        raise AssertionError(f"the host-scored {tag} run launched kernels: {kernels.LAUNCHES}")
-    same_outputs(run, twin, f"{tag}: the kernel-scored run vs the host-scored run")
+        raise AssertionError(f"the CPU-scored {tag} run launched kernels: {kernels.LAUNCHES}")
+    same_outputs(run, twin, f"{tag}: the kernel-scored run vs the CPU-scored run")
     return launches, twin
 
 
@@ -1765,16 +1752,12 @@ def graft_entry_phase(kernels) -> tuple[dict, dict, dict]:
     return step_launches, dryrun_launches, numbers
 
 
-def bench_run(host_scoring: bool) -> tuple[dict, dict]:
+def bench_run() -> tuple[dict, dict]:
     """`python -m mapper_tpu_torch.bench` as a subprocess on
     MAPPER_TPU_TORCH_DEVICE (`main` sets `cuda`), with the engine's default
-    settings (this process's host-scoring ceiling is not passed on).
-    Returns its JSON line and its timed passes' launches."""
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("MAPPER_TPU_HOST_SCORING", "MAPPER_TPU_HOST_SCORING_MAX_LEN")}
+    settings.  Returns its JSON line and its timed passes' launches."""
+    env = dict(os.environ)
     env["PYTHONPATH"] = str(Path(__file__).resolve().parent) + os.pathsep + env.get("PYTHONPATH", "")
-    if host_scoring:
-        env["MAPPER_TPU_HOST_SCORING"] = "1"
     proc = subprocess.run([sys.executable, "-m", "mapper_tpu_torch.bench"], env=env, capture_output=True,
                           text=True, timeout=BENCH_TIMEOUT_S)
     if proc.returncode != 0:
@@ -1787,30 +1770,25 @@ def bench_run(host_scoring: bool) -> tuple[dict, dict]:
 
 
 def bench_phase() -> tuple[dict, list]:
-    """The bench in turns, kernel-scored and host-scored
-    (`MAPPER_TPU_HOST_SCORING=1`): kernel, host, host, kernel.  Each run's
-    JSON line is printed; each must align at least 99% of its reads and
-    report its scoring; the host-scored runs launch no kernel.  Returns the
-    kernel-scored runs' launches, summed, and the runs in turn order."""
+    """The bench twice, one run after the other.  Each run's JSON line is
+    printed; each must align at least 99% of its reads.  Returns the runs'
+    launches, summed, and the runs in order."""
     launches, runs = {}, []
-    for host_scoring in (False, True, True, False):
-        line, counts = bench_run(host_scoring)
-        scoring = "host" if host_scoring else "kernel"
+    for _ in range(2):
+        line, counts = bench_run()
         print(json.dumps(line), flush=True)
         detail = line["detail"]
-        if detail["package"] != "mapper_tpu_torch" or detail["scoring"] != scoring:
-            raise AssertionError(f"bench ({scoring}): detail {detail}")
+        if detail["package"] != "mapper_tpu_torch":
+            raise AssertionError(f"bench: detail {detail}")
         if detail["aligned_fraction"] < 0.99:
-            raise AssertionError(f"bench ({scoring}): aligned fraction {detail['aligned_fraction']} < 0.99")
+            raise AssertionError(f"bench: aligned fraction {detail['aligned_fraction']} < 0.99")
         passes = len(detail["pass_seconds"])
-        if host_scoring and any(counts.values()):
-            raise AssertionError(f"the host-scored bench launched kernels: {counts}")
         for name, k in counts.items():
             launches[name] = launches.get(name, 0) + k
-        print(f"[bench] {scoring}-scored: {line['value']:.1f} reads/s (median "
+        print(f"[bench] {line['value']:.1f} reads/s (median "
               f"{detail['median_reads_per_second']:.1f}), banded_i16 {counts['banded_i16']} launches in {passes} "
               f"passes, banded_f32 {counts['banded_f32']}", flush=True)
-        runs.append({"scoring": scoring, "reads_per_second": line["value"],
+        runs.append({"reads_per_second": line["value"],
                      "median_reads_per_second": detail["median_reads_per_second"],
                      "banded_i16": counts["banded_i16"], "banded_f32": counts["banded_f32"], "passes": passes})
     return launches, runs

@@ -21,18 +21,16 @@ Pipeline (single-end fast path):
    exact sequential worker (align/worker.py), the output-parity reference.
 
 The host stages and the modules they call are the port's own copies of the
-JAX package's code; only the device sites differ.
-`MAPPER_TPU_HOST_SCORING=1` scores short reads with the native exact DP on
-the host instead of the kernel.  `device_candidates=True` (or
-`MAPPER_TPU_DEVICE_CANDIDATES=1`) replaces steps 1-3 of single-end chunks
-with one device program (batch/device_candidates.py) that also scores every
-kept candidate row.
+JAX package's code; only the device sites differ.  `device_candidates=True`
+(or `MAPPER_TPU_DEVICE_CANDIDATES=1`) replaces steps 1-3 of single-end
+chunks with one device program (batch/device_candidates.py) that also
+scores every kept candidate row.
 
 With a `mesh` (parallel/mesh.py) step 3 shards the candidate rows over the
 mesh's devices, each holding its own copy of the reference and the chunk's
-read matrix, and never scores on the host; the fused device-candidates
-program runs whole on the mesh's first device, as the JAX engine runs it on
-the replicated reference without sharding it.
+read matrix; the fused device-candidates program runs whole on the mesh's
+first device, as the JAX engine runs it on the replicated reference
+without sharding it.
 """
 
 from __future__ import annotations
@@ -79,18 +77,24 @@ def upload_reference(concat_np: np.ndarray, device: torch.device) -> torch.Tenso
     return torch.from_numpy(np.ascontiguousarray(concat_np, dtype=np.uint8)).to(device)
 
 
-def single_end_band(lengths: np.ndarray, p, band: int | None = None) -> tuple[int, np.ndarray]:
-    """A single-end chunk's band and per-read half-windows: each read's
-    indel budget from its length and the penalties; band 64 when every
-    budget fits in 31, else 128, unless `band` is given; the half-windows
-    are the budgets clipped at half the band."""
-    max_indel = np.maximum(
+def indel_budget(lengths: np.ndarray, p) -> np.ndarray:
+    """Each length's indel budget: the deletion bases its penalty budget
+    (length x max error rate) pays for after the opening, at least 0."""
+    return np.maximum(
         0,
         (
             (lengths * p.max_error_rate - p.deletion_start_penalty)
             / p.deletion_extension_penalty
         ).astype(np.int64),
     )
+
+
+def single_end_band(lengths: np.ndarray, p, band: int | None = None) -> tuple[int, np.ndarray]:
+    """A single-end chunk's band and per-read half-windows: each read's
+    indel budget; band 64 when every budget fits in 31, else 128, unless
+    `band` is given; the half-windows are the budgets clipped at half the
+    band."""
+    max_indel = indel_budget(lengths, p)
     if band is None:
         band = 64 if int(max_indel.max(initial=0)) <= 31 else 128
     return band, np.minimum(max_indel, band // 2)
@@ -428,13 +432,7 @@ class BatchAligner:
             # (QueryMatch_Aligner.java:207-239), so certification needs the band
             # to cover the pair-level max indel, not the per-mate one
             total_len = batch.lengths[0::2] + batch.lengths[1::2]
-            max_indel_pair = np.maximum(
-                0,
-                (
-                    (total_len * p.max_error_rate - p.deletion_start_penalty)
-                    / p.deletion_extension_penalty
-                ).astype(np.int64),
-            )
+            max_indel_pair = indel_budget(total_len, p)
             if self.band is not None:
                 band = self.band
             else:
@@ -480,34 +478,11 @@ class BatchAligner:
             combos["srow0"] = inv[combos["row0"]]
             combos["srow1"] = inv[combos["row1"]]
 
-        # host certificate, as in the single-end path: rows whose exact
-        # float64 ungapped penalty is within the straight short-circuit bound
-        # resolve on the host; only the rest ship to the device
-        with self.tracer.span("engine.certificate"):
-            shift_per_component = np.minimum(np.repeat(max_indel_pair, 2), band // 2)
-            geom = self._window_geometry(batch, subtable, shift_per_component)
-            u_used = np.full(len(subtable), np.inf)
-            ic_rows = np.nonzero(geom["in_contig"])[0]
-            if ic_rows.shape[0]:
-                u_used[ic_rows] = self._ungapped_penalties(components, subtable, ic_rows)
-            min_indel = min(
-                p.get_starting_insertion_start_penalty() + p.insertion_extension_penalty,
-                p.deletion_start_penalty + p.deletion_extension_penalty,
-            )
-            skip = geom["in_contig"] & ~geom["at_edge"] & (u_used <= min_indel)
-            dev_rows = np.nonzero(~skip)[0]
-        self.tracer.count("rows.device", dev_rows.shape[0])
+        # each mate's window spans the pair budget (clipped at half the band)
+        shift_per_component = np.minimum(np.repeat(max_indel_pair, 2), band // 2)
+        geom, u_used, skip, dev_rows = self._certify(components, batch, subtable, shift_per_component)
         with self.tracer.span("engine.dispatch"):
-            if dev_rows.shape[0]:
-                dev_sub = subtable.take(dev_rows)
-                sctx = self._dispatch_scores(
-                    components, batch, dev_sub, shift_per_component, band,
-                    # each mate may spend up to the pair budget (exact algebra
-                    # re-allocation) — the scoring DP must not cap at mate level
-                    budget_len=total_len[dev_sub.read_id // 2],
-                )
-            else:
-                sctx = None
+            sctx = self._dispatch_scores(components, batch, subtable, geom, dev_rows, band)
         return {
             "exact": False,
             "queries": queries,
@@ -746,7 +721,7 @@ class BatchAligner:
                 deferred = self._align_paired_deferred_native(
                     queries, components, table, combos, deferred, results
                 )
-            if len(deferred) >= 8 and os.environ.get("MAPPER_TPU_EXACT_THREADS", "1") != "0":
+            if len(deferred) >= 8:
                 # the per-pair exact drivers are independent (own aligner, own
                 # memo; shared caches are GIL-atomic idempotent dict fills) and
                 # ~half their time is inside native local_align calls that
@@ -918,10 +893,7 @@ class BatchAligner:
         still need the Python driver (overlap-regime combos, native DP bail,
         or output caps; the Python driver is the oracle and handles them
         identically — differential test tests/test_native_pair_driver.py)."""
-        if (
-            os.environ.get("MAPPER_TPU_NATIVE", "1") == "0"
-            or os.environ.get("MAPPER_TPU_NATIVE_PAIR", "1") == "0"
-        ):
+        if os.environ.get("MAPPER_TPU_NATIVE", "1") == "0":
             return deferred
         from mapper_tpu_torch.native import native_pair_driver_batch
 
@@ -1291,13 +1263,6 @@ class BatchAligner:
             queries, chunk, self._dispatch_single_end, self._finish_single_end
         )
 
-    def _align_single_end_batch(
-        self, queries: list[Query]
-    ) -> list[QueryAlignments | None]:
-        """Returns one QueryAlignments per query, or None where the exact
-        sequential path must decide."""
-        return self._finish_single_end(self._dispatch_single_end(queries))
-
     def _dispatch_single_end(self, queries: list[Query]):
         """Host stages + asynchronous device dispatch for one chunk; returns an
         opaque context consumed by _finish_single_end."""
@@ -1351,32 +1316,9 @@ class BatchAligner:
         if len(table) == 0:
             return [None] * num_reads
 
-        # host certificate: the exact path's own short-circuit (dp.local_align
-        # / StraightAligner.java:26-56) returns the straight alignment for a
-        # confident voted offset whose exact float64 ungapped penalty is at
-        # most the cheapest possible indel penalty — no gapped search happens.
-        # Such candidate rows never need the banded kernel: their score IS the
-        # ungapped penalty, exactly as the sequential engine would decide.
-        # Only the remaining rows (possible indels, contig edges) go to the
-        # device, as a compacted subtable.
-        with self.tracer.span("engine.certificate"):
-            geom = self._window_geometry(batch, table, shift)
-            u_all = np.full(len(table), np.inf)
-            ic_rows = np.nonzero(geom["in_contig"])[0]
-            if ic_rows.shape[0]:
-                u_all[ic_rows] = self._ungapped_penalties(reads, table, ic_rows)
-            min_indel = min(
-                p.get_starting_insertion_start_penalty() + p.insertion_extension_penalty,
-                p.deletion_start_penalty + p.deletion_extension_penalty,
-            )
-            skip = geom["in_contig"] & ~geom["at_edge"] & (u_all <= min_indel)
-            dev_rows = np.nonzero(~skip)[0]
-        self.tracer.count("rows.device", dev_rows.shape[0])
+        geom, u_all, skip, dev_rows = self._certify(reads, batch, table, shift)
         with self.tracer.span("engine.dispatch"):
-            if dev_rows.shape[0]:
-                sctx = self._dispatch_scores(reads, batch, table.take(dev_rows), shift, band)
-            else:
-                sctx = None
+            sctx = self._dispatch_scores(reads, batch, table, geom, dev_rows, band)
         return {
             "queries": queries,
             "batch": batch,
@@ -1391,8 +1333,9 @@ class BatchAligner:
         }
 
     def _window_geometry(self, batch, table, shift):
-        """Integer window geometry per candidate row (shared by the dispatch
-        certificate and the decision stage)."""
+        """Integer window geometry per candidate row, for the certificate,
+        the scorer and the decisions: each row's window is its voted offset
+        widened by its read's half-window `shift`, clipped to its contig."""
         _, _, seq_lengths = _tables(self.database)
         n_per_cand = batch.lengths[table.read_id]
         shift_per_cand = shift[table.read_id]
@@ -1402,78 +1345,74 @@ class BatchAligner:
             contig_len, table.offset + n_per_cand + shift_per_cand
         )
         return {
+            "win_start_local": win_start_local,
+            "win_end_local": win_end_local,
+            "win_start_global": self.seq_db.starts[table.ref_seq_index] + win_start_local,
+            "w_len": (win_end_local - win_start_local).astype(np.int64),
+            # the voted offset's diagonal: its lane in the band
+            "lane": (table.offset - win_start_local).astype(np.int64),
             "n_per_cand": n_per_cand,
             "valid": win_end_local > win_start_local,
+            # edge candidates (clamped windows touching contig bounds) take
+            # the sequential path for exact contig-edge economics
             "at_edge": (table.offset - shift_per_cand < 0)
             | (table.offset + n_per_cand + shift_per_cand > contig_len),
             "in_contig": (table.offset >= 0)
             & (table.offset + n_per_cand <= contig_len),
         }
 
-    def _dispatch_scores(self, seqs, batch, table, shift, band, budget_len=None):
-        """Candidate-window construction + asynchronous device scoring for one
-        candidate table.  `seqs` holds one Sequence per batch read id; `shift`
-        is the per-read half-window (int64[num_reads]); `budget_len` optionally
-        carries a per-table-row effective budget length (pair total length for
-        paired rows) consumed by the native scoring branch.  Returns a context
-        to be materialized by _finish_scores."""
+    def _certify(self, seqs, batch, table, shift):
+        """The host certificate: the exact path's own short-circuit
+        (dp.local_align / StraightAligner.java:26-56) returns the straight
+        alignment for a voted offset whose exact float64 ungapped penalty is
+        at most the cheapest possible indel penalty, with no gapped search.
+        Such rows never need the scorer: their score IS the ungapped
+        penalty, as the sequential engine would decide.  Returns the rows'
+        window geometry, their ungapped penalties (inf off-contig), the
+        certified rows' mask and the rest, the rows left to the device
+        (possible indels, contig edges)."""
         p = self.parameters
-        num_reads = batch.num_reads
-        seq_starts = self.seq_db.starts
-        _, _, seq_lengths = _tables(self.database)
-        n_per_cand = batch.lengths[table.read_id]
-        shift_per_cand = shift[table.read_id]
-        contig_len = seq_lengths[table.ref_seq_index]
+        with self.tracer.span("engine.certificate"):
+            geom = self._window_geometry(batch, table, shift)
+            ungapped = np.full(len(table), np.inf)
+            ic_rows = np.nonzero(geom["in_contig"])[0]
+            if ic_rows.shape[0]:
+                ungapped[ic_rows] = self._ungapped_penalties(seqs, table, ic_rows)
+            min_indel = min(
+                p.get_starting_insertion_start_penalty() + p.insertion_extension_penalty,
+                p.deletion_start_penalty + p.deletion_extension_penalty,
+            )
+            skip = geom["in_contig"] & ~geom["at_edge"] & (ungapped <= min_indel)
+            dev_rows = np.nonzero(~skip)[0]
+        self.tracer.count("rows.device", dev_rows.shape[0])
+        return geom, ungapped, skip, dev_rows
 
-        win_start_local = np.maximum(0, table.offset - shift_per_cand)
-        win_end_local = np.minimum(contig_len, table.offset + n_per_cand + shift_per_cand)
-        valid = win_end_local > win_start_local
-        # edge candidates (clamped windows touching contig bounds) use the
-        # sequential path for exact contig-edge economics
-        at_edge = (table.offset - shift_per_cand < 0) | (
-            table.offset + n_per_cand + shift_per_cand > contig_len
-        )
-
+    def _dispatch_scores(self, seqs, batch, table, geom, rows, band):
+        """Asynchronous device scoring of the candidate `rows` of `table`,
+        whose window geometry `geom` is _window_geometry's.  `seqs` holds one
+        Sequence per batch read id.  Returns a context to be materialized by
+        _finish_scores, or None when no row is left."""
+        if rows.shape[0] == 0:
+            return None
+        table = table.take(rows)
+        lane = geom["lane"][rows]
         # the read width is bucketed to 64s; it picks the int16/f32 kernel
         lq = -(-int(batch.lengths.max()) // 64) * 64
-        num_cands = len(table)
-        in_contig = (table.offset >= 0) & (table.offset + n_per_cand <= contig_len)
-        win_start_global = seq_starts[table.ref_seq_index] + win_start_local
-        w_len = (win_end_local - win_start_local).astype(np.int64)
-        lane = (table.offset - win_start_local).astype(np.int64)
-
-        # MAPPER_TPU_HOST_SCORING=1 scores short reads with the OpenMP native
-        # exact DP on the host (f64, full local_align semantics) instead of
-        # the kernel; long reads keep the kernel, where the banded O(n*band)
-        # DP beats the host's full O(n*w) one.  A mesh always scores on its
-        # devices, as in the JAX engine
-        if (
-            self.mesh is None
-            and os.environ.get("MAPPER_TPU_HOST_SCORING") == "1"
-            and int(batch.lengths.max(initial=0)) <= HOST_SCORING_MAX_LEN
-        ):
-            sctx = self._dispatch_scores_native(
-                seqs, batch, table, n_per_cand, win_start_local, win_end_local,
-                valid, at_edge, in_contig, win_start_global, w_len, lane, lq,
-                budget_len=budget_len,
-            )
-            if sctx is not None:
-                return sctx
-
         # fused gathered scoring: the reference lives on the device; the
         # forward read matrix and O(candidates) index vectors go up, one
         # [2, B] result comes back
-        q_mat = np.zeros((num_reads, lq), dtype=np.uint8)
+        q_mat = np.zeros((batch.num_reads, lq), dtype=np.uint8)
         for r, seq in enumerate(seqs):
             q_mat[r, : len(seq)] = seq.codes
         vectors = (
             table.read_id.astype(np.int64),
             table.reversed_.astype(bool),
-            win_start_global.astype(np.int64),
+            geom["win_start_global"][rows].astype(np.int64),
             lane,
-            n_per_cand.astype(np.int32),
-            w_len.astype(np.int32),
+            geom["n_per_cand"][rows].astype(np.int32),
+            geom["w_len"][rows].astype(np.int32),
         )
+        p = self.parameters
         if self.mesh is None:
             dev = self.device
             out = banded_scores_gathered(
@@ -1500,160 +1439,10 @@ class BatchAligner:
             "scores_host": host,
             "scores_done": done,
             "lane": lane,
-            "in_contig": in_contig,
-            "num_cands": num_cands,
+            "in_contig": geom["in_contig"][rows],
+            "num_cands": len(table),
             "band": band,
         }
-
-    def _dispatch_scores_native(
-        self, seqs, batch, table, n_per_cand, win_start_local, win_end_local,
-        valid, at_edge, in_contig, win_start_global, w_len, lane, lq,
-        budget_len=None,
-    ):
-        """Score the candidate windows with the OpenMP native exact DP
-        (dp.cpp::mapper_local_align_batch) instead of a device program:
-        returns a finished sctx {"host_scored": (ungapped, banded)} or None
-        when the native library is unavailable / bails.  `banded` is the
-        exact local_align penalty of each window (f64; inf when over budget
-        or invalid), which is the quantity the f32 kernel approximates —
-        straight rows reproduce the exact ungapped penalty bit-for-bit
-        (same -ffp-contract=off sums as numpy), so the banded==ungapped
-        clean-emission test behaves identically."""
-        from mapper_tpu_torch.native import get_library, native_local_align_batch
-
-        if get_library() is None:
-            return None
-        p = self.parameters
-        k = len(table)
-        _, _, seq_lengths = _tables(self.database)
-        contig_len = seq_lengths[table.ref_seq_index]
-
-        banded = np.full(k, np.inf)
-        run = np.nonzero(valid & (w_len > 0) & (n_per_cand > 0))[0]
-        if run.shape[0]:
-            # per-row query codes (forward / reverse-complement)
-            rev_rows = table.reversed_[run]
-            rid = table.read_id[run]
-            n_run = n_per_cand[run].astype(np.int32)
-            q_off = np.zeros(run.shape[0], dtype=np.int64)
-            np.cumsum(n_run[:-1], out=q_off[1:])
-            qbuf = np.empty(int(n_run.sum()), dtype=np.uint8)
-            rc_cache: dict[int, np.ndarray] = {}
-            for j in range(run.shape[0]):
-                r = int(rid[j])
-                if rev_rows[j]:
-                    codes = rc_cache.get(r)
-                    if codes is None:
-                        codes = basepairs.reverse_complement(seqs[r].codes)
-                        rc_cache[r] = codes
-                else:
-                    codes = seqs[r].codes
-                qbuf[q_off[j] : q_off[j] + n_run[j]] = codes
-
-            # window codes gathered from the host concat
-            w_run = w_len[run].astype(np.int32)
-            w_off = np.zeros(run.shape[0], dtype=np.int64)
-            np.cumsum(w_run[:-1], out=w_off[1:])
-            lw_max = int(w_run.max(initial=1))
-            w_idx = win_start_global[run][:, None] + np.arange(lw_max, dtype=np.int64)
-            w_idx = np.minimum(w_idx, self.concat.shape[0] - 1)
-            w_mat = self.concat[w_idx]
-            wbuf = np.empty(int(w_run.sum()), dtype=np.uint8)
-            for j in range(run.shape[0]):
-                wbuf[w_off[j] : w_off[j] + w_run[j]] = w_mat[j, : w_run[j]]
-
-            nf = n_run.astype(np.float64)
-            max_allowed = np.nextafter(nf * p.max_error_rate, np.inf)
-            rates = max_allowed / nf
-            bump = rates * nf < max_allowed
-            rates[bump] = np.nextafter(rates[bump], np.inf)
-
-            rs_loc = win_start_local[run].astype(np.int64)
-            pred = np.clip(lane[run], 0, np.maximum(w_run - 1, 0)).astype(np.int32)
-            at_s = (win_start_local[run] == 0).astype(np.uint8)
-            at_e = (win_end_local[run] == contig_len[run]).astype(np.uint8)
-            out = native_local_align_batch(
-                qbuf,
-                q_off,
-                n_run,
-                wbuf,
-                w_off,
-                w_run,
-                rs_loc,
-                pred,
-                at_s,
-                at_e,
-                np.ones(run.shape[0], dtype=np.uint8),
-                rates,
-                p,
-            )
-            if out is None:
-                return None
-            status, nblocks, blocks, total, aligned = out
-            if np.any(status == -2):
-                return None  # native bailed on a problem: use the device path
-            banded[run] = np.where(status >= 0, total, np.inf)
-
-            # second pass for paired rows: the exact pair algebra can grant
-            # one mate nearly the whole PAIR budget
-            # (QueryMatch_Aligner.java:207-239), and the mate-level cap above
-            # would inf-out combos the worker accepts (measured: 7/4096 hard
-            # pairs emitted affirmatively empty).  Only rows the first pass
-            # rejected (-1) rerun with the pair-level budget — any alignment
-            # the first pass FOUND is the global optimum for larger budgets
-            # too (an alignment with total <= small budget lies inside the
-            # small search space by the extension-cap algebra), so the cheap
-            # pass answers for the overwhelming clean majority.
-            if budget_len is not None:
-                bf = budget_len[run].astype(np.float64)
-                redo = np.nonzero((status == -1) & (bf > nf))[0]
-                if redo.shape[0]:
-                    max2 = np.nextafter(bf[redo] * p.max_error_rate, np.inf)
-                    rates2 = max2 / nf[redo]
-                    bump2 = rates2 * nf[redo] < max2
-                    rates2[bump2] = np.nextafter(rates2[bump2], np.inf)
-                    out2 = native_local_align_batch(
-                        qbuf,
-                        q_off[redo],
-                        n_run[redo],
-                        wbuf,
-                        w_off[redo],
-                        w_run[redo],
-                        rs_loc[redo],
-                        pred[redo],
-                        at_s[redo],
-                        at_e[redo],
-                        np.ones(redo.shape[0], dtype=np.uint8),
-                        rates2,
-                        p,
-                    )
-                    if out2 is None:
-                        return None
-                    s2, _, _, t2, _ = out2
-                    if np.any(s2 == -2):
-                        return None
-                    banded[run[redo]] = np.where(s2 >= 0, t2, np.inf)
-            native_raw = {
-                # per-slot raw results, reusable as gap-finalization wave-1
-                # answers when the window geometry matches (subtable row ->
-                # slot); see _finish_single_end's job construction
-                "slot_of_row": {int(r): j for j, r in enumerate(run.tolist())},
-                "status": status,
-                "nblocks": nblocks,
-                "blocks": blocks,
-                "total": total,
-                "aligned": aligned,
-                "rs": win_start_local[run],
-                "we": win_end_local[run],
-            }
-        else:
-            native_raw = None
-
-        ungapped = np.full(k, np.inf)
-        ic = np.nonzero(in_contig)[0]
-        if ic.shape[0]:
-            ungapped[ic] = self._ungapped_penalties(seqs, table, ic)
-        return {"host_scored": (ungapped, banded), "native_raw": native_raw}
 
     def _use_device_candidates(self) -> bool:
         """The fused device-candidates path is opt-in
@@ -1677,8 +1466,6 @@ class BatchAligner:
     def _finish_scores(self, sctx):
         """Materialize the scores of a _dispatch_scores context: (ungapped,
         banded) float64 arrays per candidate row."""
-        if "host_scored" in sctx:
-            return sctx["host_scored"]
         if sctx["scores_done"] is not None:
             sctx["scores_done"].synchronize()
         out = sctx["scores_host"].numpy().astype(np.float64)
@@ -1708,9 +1495,7 @@ class BatchAligner:
     # probes); _finalize_one_gap_job_python is the oracle fallback.
 
     def _finalize_gap_jobs(self, jobs, results, best_per_read, gap_margin):
-        import os as _os
-
-        if _os.environ.get("MAPPER_TPU_NATIVE", "1") != "0":
+        if os.environ.get("MAPPER_TPU_NATIVE", "1") != "0":
             from mapper_tpu_torch.native import get_library
 
             if get_library() is not None:
@@ -1846,39 +1631,26 @@ class BatchAligner:
             job["max_allowed"] = math.nextafter(n * R, math.inf)
             job["rate"] = dru(job["max_allowed"], n)
 
-        # wave 1: jobs whose exact-DP answer was already computed by the
-        # host-scoring pass carry it in job["pre"]; only the rest align here
-        need = [j for j in jobs if "pre" not in j]
-        if need:
-            wave1 = [(j["seq_a"], j["ref"], j["o"], j["rate"]) for j in need]
-            out = self._run_local_align_wave(wave1)
-            if out is None:
-                for job in jobs:
-                    self._finalize_one_gap_job_python(
-                        job, results, best_per_read, gap_margin
-                    )
-                return
-            status_n, nblocks_n, blocks_n, total_n, aligned_n, r_starts_n = out
-            for i, job in enumerate(need):
-                job["pre"] = (
-                    int(status_n[i]),
-                    int(nblocks_n[i]),
-                    blocks_n[i],
-                    float(total_n[i]),
-                    float(aligned_n[i]),
-                    int(r_starts_n[i]),
-                )
+        # wave 1: every job's voted position
+        out = self._run_local_align_wave(
+            [(j["seq_a"], j["ref"], j["o"], j["rate"]) for j in jobs]
+        )
+        if out is None:
+            for job in jobs:
+                self._finalize_one_gap_job_python(job, results, best_per_read, gap_margin)
+            return
+        status1, nblocks1, blocks1, total1, aligned1, r_starts1 = out
 
         survivors = []
         probes = []  # (job, o2)
         for i, job in enumerate(jobs):
-            st, nb_pre, blocks_pre, total_pre, aligned_pre, rs_pre = job["pre"]
+            st = int(status1[i])
             if st == -2:  # native bailed: per-read oracle decides
                 self._finalize_one_gap_job_python(job, results, best_per_read, gap_margin)
                 continue
             if st == -1:
                 continue  # align() returned None
-            pen = total_pre
+            pen = float(total1[i])
             if pen > job["max_allowed"]:
                 continue  # _do_align's final accept check failed
             # get_best_alignments: cutoff = min(best+span, n*rate_now) with
@@ -1890,10 +1662,10 @@ class BatchAligner:
                 continue  # choices empty
             if abs(pen - best_per_read[job["r"]]) > gap_margin:
                 continue
-            nb = nb_pre
-            rs = int(rs_pre)
+            rs = int(r_starts1[i])
             abs_blocks = tuple(
-                (sa, rs + sb, la, lb) for sa, sb, la, lb in blocks_pre[:nb].tolist()
+                (sa, rs + sb, la, lb)
+                for sa, sb, la, lb in blocks1[i, : int(nblocks1[i])].tolist()
             )
             offsets = set(job["locus"])
             for sa, sb_abs, la, lb in abs_blocks:
@@ -1901,9 +1673,8 @@ class BatchAligner:
                     offsets.add(sb_abs - sa)
             offsets.discard(job["o"])
             job["pen0"] = pen
-            job["aligned0"] = aligned_pre
+            job["aligned0"] = float(aligned1[i])
             job["blocks0"] = abs_blocks
-            job["status0"] = st
             job["pending"] = len(offsets)
             job["ok"] = True
             survivors.append(job)
@@ -2008,8 +1779,7 @@ class BatchAligner:
             valid = geom["valid"]
             at_edge = geom["at_edge"]
             n_per_cand = geom["n_per_cand"]
-            win_start_local = np.maximum(0, table.offset - ctx["shift"][table.read_id])
-            lane = (table.offset - win_start_local).astype(np.int64)
+            lane = geom["lane"]
             lane_valid = (lane >= 0) & (lane < ctx["band"])
             ungapped = np.where(geom["in_contig"] & lane_valid, ung_raw, np.inf)
             if len(fallback_ids):
@@ -2050,13 +1820,7 @@ class BatchAligner:
             # argument airtight instead of probabilistic).  Others go to the
             # exact worker.
             band = ctx["band"]
-            max_indel_read = np.maximum(
-                0,
-                (
-                    (batch.lengths * p.max_error_rate - p.deletion_start_penalty)
-                    / p.deletion_extension_penalty
-                ).astype(np.int64),
-            )
+            max_indel_read = indel_budget(batch.lengths, p)
             wide = max_indel_read > band // 2
             if np.any(wide):
                 out_band_min = min(
@@ -2124,19 +1888,6 @@ class BatchAligner:
             if fallback_reads is not None:
                 gap_reads &= ~fallback_reads
             if np.any(gap_reads):
-                # host-scored chunks already ran the exact DP on every dev row
-                # with wave-1-identical inputs (same window, rate, prediction);
-                # map full-table row -> raw-result slot so jobs can skip wave 1
-                native_raw = None
-                full_slot = None
-                sctx0 = ctx.get("sctx")
-                if sctx0 is not None and sctx0.get("native_raw") is not None:
-                    native_raw = sctx0["native_raw"]
-                    dev_rows_arr = ctx["dev_rows"]
-                    full_slot = {
-                        int(dev_rows_arr[sub]): slot
-                        for sub, slot in native_raw["slot_of_row"].items()
-                    }
                 margin_row = viable & (
                     score <= best_per_read[table.read_id] + p.max_penalty_span + GAP_MARGIN
                 )
@@ -2190,7 +1941,7 @@ class BatchAligner:
                             and abs(int(table.offset[rr]) - o) <= mi
                         ):
                             locus_offsets.add(int(table.offset[rr]))
-                    job = {
+                    jobs.append({
                         "r": r,
                         "query": query,
                         "seq_a": seq_a,
@@ -2198,42 +1949,7 @@ class BatchAligner:
                         "o": o,
                         "rev": rev,
                         "locus": locus_offsets,
-                    }
-                    if full_slot is not None and c in full_slot:
-                        # reuse the scoring pass's exact-DP result as wave 1 when
-                        # the wave's window geometry reproduces the scoring one
-                        # (nextUp rounding can shift max_indel by 1 in edge cases;
-                        # compare the actual window bounds)
-                        import math as _math
-
-                        slot = full_slot[c]
-                        n_j = len(seq_a)
-                        ma = _math.nextafter(n_j * p.max_error_rate, _math.inf)
-                        rate_j = ma / n_j
-                        if rate_j * n_j < ma:
-                            rate_j = _math.nextafter(rate_j, _math.inf)
-                        mi_w = int(
-                            max(
-                                0.0,
-                                (n_j * rate_j - p.deletion_start_penalty)
-                                / p.deletion_extension_penalty,
-                            )
-                        )
-                        rs_w = max(0, o - mi_w)
-                        re_w = min(o + n_j + mi_w, len(ref))
-                        if (
-                            rs_w == int(native_raw["rs"][slot])
-                            and re_w == int(native_raw["we"][slot])
-                        ):
-                            job["pre"] = (
-                                int(native_raw["status"][slot]),
-                                int(native_raw["nblocks"][slot]),
-                                native_raw["blocks"][slot],
-                                float(native_raw["total"][slot]),
-                                float(native_raw["aligned"][slot]),
-                                rs_w,
-                            )
-                    jobs.append(job)
+                    })
                 if jobs:
                     self._finalize_gap_jobs(jobs, results, best_per_read, GAP_MARGIN)
             emit_sorted = emit[order]
@@ -2407,7 +2123,3 @@ def _tables(database):
     from mapper_tpu_torch.batch.candidates import _strand_tables
 
     return _strand_tables(database)
-
-
-# single-chip host-scoring read-length ceiling (see _dispatch_scores)
-HOST_SCORING_MAX_LEN = int(os.environ.get("MAPPER_TPU_HOST_SCORING_MAX_LEN", "600"))

@@ -17,9 +17,7 @@ vs_baseline is against BASELINE_JAVA_READS_PER_SECOND, the root bench's
 constant.  The index build is timed apart; one warm-up `process_batch`, then
 BENCH_GROUPS x BENCH_PASSES timed passes (defaults 4 x 3, the root bench's
 variables); `value` is from the fastest pass, the median beside it.
-`detail.device` is the card's name and power limit (nvidia-smi), and
-`detail.scoring` says whether the kernel ("kernel", the port's default) or
-the native host DP (`MAPPER_TPU_HOST_SCORING=1`, "host") scored the rows.
+`detail.device` is the card's name and power limit (nvidia-smi).
 
 The engine runs on MAPPER_TPU_TORCH_DEVICE (default `cuda`; `cpu` runs the
 plain scorer on the host), as the CLI does; with no card and no `cpu` it
@@ -149,7 +147,6 @@ def main():
                 "detail": {
                     "package": "mapper_tpu_torch",
                     "device": device_name(device),
-                    "scoring": "host" if os.environ.get("MAPPER_TPU_HOST_SCORING") == "1" else "kernel",
                     "num_reads": len(queries),
                     "aligned_fraction": aligned / len(queries),
                     "fallback_reads": engine.stats_fallback_reads,

@@ -20,7 +20,7 @@ from mapper_tpu_torch import bench
 REPO = Path(__file__).resolve().parent.parent
 SMALL = {"NUM_READS": 256, "REFERENCE_SIZE": 50_000}
 DETAIL_KEYS = {
-    "package", "device", "scoring", "num_reads", "aligned_fraction", "fallback_reads", "index_build_seconds",
+    "package", "device", "num_reads", "aligned_fraction", "fallback_reads", "index_build_seconds",
     "align_seconds", "methodology", "median_reads_per_second", "pass_seconds", "e2e_dp_gcells_per_s",
 }
 
@@ -59,13 +59,8 @@ def test_constants_are_the_root_bench_workload():
         assert getattr(bench, name) == getattr(root_bench, name), name
 
 
-@pytest.mark.parametrize("scoring", ["kernel", "host"])
-def test_main_prints_one_json_line(small, monkeypatch, capsys, scoring):
+def test_main_prints_one_json_line(small, monkeypatch, capsys):
     monkeypatch.setenv("MAPPER_TPU_TORCH_DEVICE", "cpu")
-    if scoring == "host":
-        monkeypatch.setenv("MAPPER_TPU_HOST_SCORING", "1")
-    else:
-        monkeypatch.delenv("MAPPER_TPU_HOST_SCORING", raising=False)
     assert bench.main() == 0
     captured = capsys.readouterr()
     lines = captured.out.strip().splitlines()
@@ -76,7 +71,7 @@ def test_main_prints_one_json_line(small, monkeypatch, capsys, scoring):
     detail = line["detail"]
     assert set(detail) == DETAIL_KEYS
     assert detail["package"] == "mapper_tpu_torch" and detail["device"] == "cpu"
-    assert detail["scoring"] == scoring and detail["methodology"] == "min_of_passes"
+    assert detail["methodology"] == "min_of_passes"
     assert detail["num_reads"] == SMALL["NUM_READS"] and detail["aligned_fraction"] >= 0.99
     assert len(detail["pass_seconds"]) == 2 and detail["align_seconds"] == min(detail["pass_seconds"])
     assert line["value"] == pytest.approx(SMALL["NUM_READS"] / detail["align_seconds"])

@@ -4,7 +4,9 @@ from the same reference and reads: SamWriter output byte-identical.  Short
 reads take the int16 scorer, reads over 512 bp the f32 one (the plain
 PyTorch versions of the CUDA kernels on the CPU)."""
 
+import inspect
 import io
+import os
 import sys
 import threading
 
@@ -15,6 +17,7 @@ import torch
 from benchmarks.simlib import random_reference, rc_text
 import mapper_tpu
 from mapper_tpu.align.query import Query as JaxQuery
+from mapper_tpu.batch.candidates import CandidateTable as JaxCandidateTable, ReadBatch as JaxReadBatch
 from mapper_tpu.batch.engine import BatchAligner as JaxBatchAligner
 from mapper_tpu.io.sam import SamWriter as JaxSamWriter
 from mapper_tpu.sequence import Sequence as JaxSequence
@@ -24,7 +27,8 @@ from mapper_tpu_torch.align.query import Query
 from mapper_tpu_torch.io.sam import SamWriter
 from mapper_tpu_torch.sequence import Sequence
 from mapper_tpu_torch.batch import engine as torch_engine
-from mapper_tpu_torch.batch.engine import BatchAligner, upload_reference
+from mapper_tpu_torch.batch.candidates import CandidateTable, ReadBatch
+from mapper_tpu_torch.batch.engine import BatchAligner, indel_budget, single_end_band, upload_reference
 from mapper_tpu_torch.simulate import simulate_reads
 
 CPU = torch.device("cpu")
@@ -90,13 +94,17 @@ def scorer_calls(monkeypatch):
     return calls
 
 
+@pytest.mark.parametrize("chunk", [None, 32])
 @pytest.mark.parametrize("kind", ["short", "long"])
-def test_engine_sam_matches_jax_engine(workload, scorer_calls, kind):
+def test_engine_sam_matches_jax_engine(workload, scorer_calls, kind, chunk):
+    """`chunk` is the engine's pipeline_chunk_reads: None scores the batch
+    as one chunk, 32 runs it through the pipeline (16 chunks of the short
+    reads)."""
     _, index, short, long_, jax_index = workload
     reads = short if kind == "short" else long_
     params = AlignmentParameters.defaults()
     want = JaxBatchAligner(jax_index, _jax_params()).process_batch(_jax_queries(reads))
-    engine = BatchAligner(index, params, CPU)
+    engine = BatchAligner(index, params, CPU, pipeline_chunk_reads=chunk)
     got = engine.process_batch(_queries(reads))
     sam = _sam(index, got)
     assert sam == _jax_sam(jax_index, want)
@@ -104,32 +112,6 @@ def test_engine_sam_matches_jax_engine(workload, scorer_calls, kind):
     # the kernel's plain version scored the chunk, on the int16 path for
     # 150 bp and the f32 path above 512 bp
     assert scorer_calls and all(q == (kind == "short") for _, q in scorer_calls)
-
-
-def test_host_scoring_switch_matches(workload, monkeypatch, scorer_calls):
-    _, index, short, _, _ = workload
-    params = AlignmentParameters.defaults()
-    reads = short[:128]
-    kernel = _sam(index, BatchAligner(index, params, CPU).process_batch(_queries(reads)))
-    n_kernel = len(scorer_calls)
-    monkeypatch.setenv("MAPPER_TPU_HOST_SCORING", "1")
-    host = _sam(index, BatchAligner(index, params, CPU).process_batch(_queries(reads)))
-    assert host == kernel
-    assert n_kernel >= 1 and len(scorer_calls) == n_kernel  # no scorer call
-
-
-def test_host_scoring_long_reads_matches(workload, monkeypatch, scorer_calls):
-    """With the host-scoring ceiling raised above the read length, reads over
-    512 bp are scored by the native DP too, with the f32 scorer's SAM."""
-    _, index, _, long_, _ = workload
-    params = AlignmentParameters.defaults()
-    kernel = _sam(index, BatchAligner(index, params, CPU).process_batch(_queries(long_)))
-    n_kernel = len(scorer_calls)
-    monkeypatch.setenv("MAPPER_TPU_HOST_SCORING", "1")
-    monkeypatch.setattr(torch_engine, "HOST_SCORING_MAX_LEN", 1024)
-    host = _sam(index, BatchAligner(index, params, CPU).process_batch(_queries(long_)))
-    assert host == kernel
-    assert n_kernel >= 1 and len(scorer_calls) == n_kernel  # no scorer call
 
 
 def test_paired_engine_matches_jax_engine(workload):
@@ -158,6 +140,114 @@ def test_paired_engine_matches_jax_engine(workload):
     want = JaxBatchAligner(jax_index, _jax_params()).process_batch(make(JaxQuery, JaxSequence))
     got = BatchAligner(index, AlignmentParameters.defaults(), CPU).process_batch(make())
     assert _sam(index, got, paired=True) == _jax_sam(jax_index, want, paired=True)
+
+
+def _jax_budget(lengths, jp):
+    """The JAX engine's indel budget, as its single-end and paired dispatch
+    write it out."""
+    return np.maximum(
+        0,
+        ((lengths * jp.max_error_rate - jp.deletion_start_penalty) / jp.deletion_extension_penalty).astype(np.int64),
+    )
+
+
+@pytest.mark.parametrize("case", ["single_band64", "single_band128", "paired"])
+def test_window_geometry_and_certificate_match_jax_engine(workload, monkeypatch, case):
+    """One candidate table of interior, contig-edge and off-contig rows (and
+    rows whose window is empty), on both strands, at each read's origin and
+    off it: the port's window geometry (in_contig, at_edge, valid, lane)
+    and certified rows equal the JAX engine's `_window_geometry`, the lanes
+    its `_dispatch_scores` builds and its certificate's rows.  The
+    half-windows are the single-end reads' budgets (150 bp reads take band
+    64, 200-400 bp band 128) or, paired, each pair's budget on both mates."""
+    ref, index, _, _, jax_index = workload
+    contigs = [ref[:30_000], ref[30_000:]]
+    rng = np.random.default_rng(["single_band64", "single_band128", "paired"].index(case))
+    lo, hi = (200, 400) if case == "single_band128" else (100, 160)
+    texts, origins = [], []
+    for i in range(12):
+        contig = contigs[i % 2]
+        n = int(rng.integers(lo, hi))
+        pos = [3, len(contig) - n - 2][i % 2] if i in (4, 5) else int(rng.integers(100, len(contig) - n - 100))
+        read = list(contig[pos : pos + n])
+        for j in rng.integers(0, n, size=i % 4):  # 0-3 SNPs
+            read[j] = "ACGT"[("ACGT".index(read[j]) + 1) % 4]
+        if i % 6 == 5:
+            del read[n // 2 : n // 2 + 2]  # a deletion: no certificate
+            read += list(contig[pos + n : pos + n + 2])
+        rev = bool(i % 3 == 0)
+        texts.append(rc_text("".join(read)) if rev else "".join(read))
+        origins.append((pos, rev))
+    seqs = [Sequence.from_text(f"r{i}", t) for i, t in enumerate(texts)]
+    jax_seqs = [JaxSequence.from_text(f"r{i}", t) for i, t in enumerate(texts)]
+    batch, jax_batch = ReadBatch.from_sequences(seqs), JaxReadBatch.from_sequences(jax_seqs)
+
+    p, jp = AlignmentParameters.defaults(), _jax_params()
+    if case == "paired":  # components 2i and 2i + 1 are the mates of pair i
+        total = batch.lengths[0::2] + batch.lengths[1::2]
+        band, _ = single_end_band(total, p)
+        shift = np.minimum(np.repeat(indel_budget(total, p), 2), band // 2)
+        jax_budget = _jax_budget(total, jp)
+        jax_band = 64 if int(jax_budget.max(initial=0)) <= 31 else 128
+        jax_shift = np.minimum(np.repeat(jax_budget, 2), jax_band // 2)
+    else:
+        band, shift = single_end_band(batch.lengths, p)
+        jax_budget = _jax_budget(batch.lengths, jp)
+        jax_band = 64 if int(jax_budget.max(initial=0)) <= 31 else 128
+        jax_shift = np.minimum(jax_budget, jax_band // 2)
+    assert band == jax_band == (64 if case == "single_band64" else 128)
+    np.testing.assert_array_equal(shift, jax_shift)
+
+    rows = []  # (read, reversed, contig, offset)
+    for i, (pos, rev) in enumerate(origins):
+        c, n, h, end = i % 2, int(batch.lengths[i]), int(shift[i]), len(contigs[i % 2])
+        # at the origin and off it; the window's edge on the contig's and one
+        # past it; off the contig; an empty window at either end
+        for off in (pos, pos - 2, pos + 2, h, h - 1, end - n - h, end - n - h + 1, 0, end - n, -3, end - n + 3,
+                    -n - h, end + h):
+            rows.append((i, rev if off == pos else bool(rng.integers(0, 2)), c, off))
+    read_id, reversed_, ref_seq_index, offset = (np.array(col) for col in zip(*rows))
+    columns = (read_id.astype(np.int32), reversed_.astype(bool), ref_seq_index.astype(np.int32),
+               offset.astype(np.int64), np.ones(len(rows), dtype=np.int32))
+    table, jax_table = CandidateTable(*columns), JaxCandidateTable(*columns)
+
+    geom, ungapped, skip, dev_rows = BatchAligner(index, p, CPU)._certify(seqs, batch, table, shift)
+
+    jax_engine = JaxBatchAligner(jax_index, jp)
+    want = jax_engine._window_geometry(jax_batch, jax_table, jax_shift)
+    # the JAX engine's lanes: those its _dispatch_scores hands its host
+    # scorer, which it calls with its default settings
+    for key in [k for k in os.environ if k.startswith("MAPPER_TPU")]:
+        monkeypatch.delenv(key)
+    host_scorer = inspect.signature(JaxBatchAligner._dispatch_scores_native)
+    seen = {}
+
+    def capture(*args, **kwargs):
+        seen.update(host_scorer.bind(jax_engine, *args, **kwargs).arguments)
+        return {}
+
+    jax_engine._dispatch_scores_native = capture
+    jax_engine._dispatch_scores(jax_seqs, jax_batch, jax_table, jax_shift, jax_band)
+    for name in ("in_contig", "at_edge", "valid", "n_per_cand"):
+        np.testing.assert_array_equal(geom[name], want[name], err_msg=name)
+    for name in ("lane", "win_start_global", "w_len"):
+        np.testing.assert_array_equal(geom[name], seen[name], err_msg=name)
+    # the JAX engine's certificate
+    jax_ungapped = np.full(len(jax_table), np.inf)
+    ic_rows = np.nonzero(want["in_contig"])[0]
+    jax_ungapped[ic_rows] = jax_engine._ungapped_penalties(jax_seqs, jax_table, ic_rows)
+    min_indel = min(
+        jp.get_starting_insertion_start_penalty() + jp.insertion_extension_penalty,
+        jp.deletion_start_penalty + jp.deletion_extension_penalty,
+    )
+    jax_skip = want["in_contig"] & ~want["at_edge"] & (jax_ungapped <= min_indel)
+    np.testing.assert_array_equal(ungapped, jax_ungapped)
+    np.testing.assert_array_equal(skip, jax_skip)
+    np.testing.assert_array_equal(dev_rows, np.nonzero(~jax_skip)[0])
+    # the table reaches every kind of row, certified rows included
+    assert skip.any() and (want["in_contig"] & want["at_edge"]).any()
+    assert (~want["in_contig"] & want["valid"]).any() and (~want["valid"]).any()
+    assert (geom["in_contig"] & ~geom["at_edge"] & ~skip).any()
 
 
 def test_concurrent_batches_share_one_engine(workload):

@@ -1,10 +1,12 @@
 """The agreement fuzz of tests/test_engine_agreement.py on the port: the
 port's batch engine against the port's sequential worker (the exact
 reference) and against the JAX package's batch engine, on the same
-randomized reads, twice: scored by the kernel's plain version on the CPU,
-and with MAPPER_TPU_HOST_SCORING=1 (the native exact DP on the host for
-reads up to 600 bp).  Every summarized alignment set must match.  The
-worker's and the JAX engine's answers are computed once per workload."""
+randomized reads, scored by the kernel's plain version on the CPU, twice:
+each workload as one chunk (the engine's default chunk of 4,096 reads),
+and through the pipeline in chunks of 32 reads (`_run_pipelined`; 79
+chunks of the 2,500-read fuzz, past PIPELINE_DEPTH).  Every summarized
+alignment set must match.  The worker's and the JAX engine's answers are
+computed once per workload."""
 
 import numpy as np
 import pytest
@@ -21,7 +23,8 @@ from mapper_tpu_torch.batch.engine import BatchAligner
 from mapper_tpu_torch.sequence import Sequence
 
 CPU = torch.device("cpu")
-MODES = ["plain", "host"]
+MODES = ["one_chunk", "pipelined"]
+CHUNK_READS = {"one_chunk": 4096, "pipelined": 32}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -34,12 +37,9 @@ def one_torch_thread():
 
 
 @pytest.fixture
-def engine_mode(monkeypatch, request):
-    if request.param == "host":
-        monkeypatch.setenv("MAPPER_TPU_HOST_SCORING", "1")
-    else:
-        monkeypatch.delenv("MAPPER_TPU_HOST_SCORING", raising=False)
-    return request.param
+def engine_mode(request):
+    """The engine's pipeline_chunk_reads for the mode."""
+    return CHUNK_READS[request.param]
 
 
 _EXPECTED: dict = {}
@@ -117,14 +117,15 @@ def summarize_pair(result):
     return tuple(rows)
 
 
-def _agree(key, contigs, reads_or_queries, summarizer=summarize):
-    """The port's batch engine on `contigs` gives every query the summary
-    of the port's worker and of the JAX package's batch engine."""
+def _agree(key, contigs, reads_or_queries, chunk_reads, summarizer=summarize):
+    """The port's batch engine on `contigs`, in chunks of `chunk_reads`
+    reads, gives every query the summary of the port's worker and of the
+    JAX package's batch engine."""
     params = AlignmentParameters.defaults()
     index = Api.new_database(contigs)
     queries = [q if isinstance(q, Query) else Query(q) for q in reads_or_queries]
     want, jax_want = expected(key, contigs, index, params, queries, summarizer)
-    got = BatchAligner(index, params, CPU).process_batch(list(queries))
+    got = BatchAligner(index, params, CPU, pipeline_chunk_reads=chunk_reads).process_batch(list(queries))
     assert len(got) == len(want) == len(jax_want)
     mismatches = [
         (i, summarizer(g), w, j)
@@ -167,7 +168,7 @@ def test_randomized_engine_agreement(engine_mode):
         if rng.random() < 0.5:
             text = rc_text(text)
         reads.append(Sequence.from_text(f"r{i}", text))
-    _agree("randomized", contigs, reads)
+    _agree("randomized", contigs, reads, engine_mode)
 
 
 @pytest.mark.parametrize("engine_mode", MODES, indirect=True)
@@ -182,7 +183,7 @@ def test_wide_band_indel_read_matches_exact_engine(engine_mode):
         ref_list[447 + j] = {"A": "C", "C": "G", "G": "T", "T": "A"}[ref_list[447 + j]]
     ref_text = "".join(ref_list)
     read_text = ref_text[100:447] + ref_text[517:570]
-    (batch,) = _agree("wide_band", {"chr": ref_text}, [Sequence.from_text("wide", read_text)])
+    (batch,) = _agree("wide_band", {"chr": ref_text}, [Sequence.from_text("wide", read_text)], engine_mode)
     assert any(
         any(s.length_a != s.length_b for s in choice.get_component(0).sections)
         for choice in batch.get_first_alignments()
@@ -192,7 +193,7 @@ def test_wide_band_indel_read_matches_exact_engine(engine_mode):
 @pytest.mark.parametrize("engine_mode", MODES, indirect=True)
 def test_long_read_agreement(engine_mode):
     """Mirrors test_engine_agreement.py::test_long_read_agreement: 1,400 bp
-    reads (the split-query regime) on the f32 scorer in both modes."""
+    reads (the split-query regime) on the f32 scorer."""
     rng = np.random.default_rng(99)
     ref_text = random_text(60000, rng)
     reads = []
@@ -215,7 +216,7 @@ def test_long_read_agreement(engine_mode):
         if rng.random() < 0.5:
             s = rc_text(s)
         reads.append(Sequence.from_text(f"L{i}", s))
-    _agree("long", {"chr": ref_text}, reads)
+    _agree("long", {"chr": ref_text}, reads, engine_mode)
 
 
 @pytest.mark.parametrize("engine_mode", MODES, indirect=True)
@@ -261,7 +262,7 @@ def test_agreement_fuzz_large(engine_mode):
         if rng.random() < 0.5:
             text = rc_text(text)
         reads.append(Sequence.from_text(f"z{i}", text))
-    _agree("fuzz_large", contigs, reads)
+    _agree("fuzz_large", contigs, reads, engine_mode)
 
 
 def _port_pairs(jax_queries):
@@ -285,7 +286,7 @@ def test_paired_engine_agreement_fuzz(engine_mode):
     rng = np.random.default_rng(4242)
     ref_text = random_text(40000, rng)
     queries = _port_pairs(simulate_pairs(ref_text[:26000], 200, seed=97))
-    _agree("paired", {"pA": ref_text[:26000], "pB": ref_text[26000:]}, queries, summarize_pair)
+    _agree("paired", {"pA": ref_text[:26000], "pB": ref_text[26000:]}, queries, engine_mode, summarize_pair)
 
 
 @pytest.mark.parametrize("engine_mode", MODES, indirect=True)
@@ -307,15 +308,15 @@ def test_paired_engine_agreement_fuzz_hard(engine_mode):
         )
         for a, b in pairs
     ]
-    _agree("paired_hard", {"chr1": ref_text}, queries, summarize_pair)
+    _agree("paired_hard", {"chr1": ref_text}, queries, engine_mode, summarize_pair)
 
 
 @pytest.mark.parametrize("engine_mode", MODES, indirect=True)
 def test_paired_mate_spends_pair_budget(engine_mode):
     """Mirrors test_engine_agreement.py::test_paired_mate_spends_pair_budget:
     one mate over its own budget (a 3 bp deletion and 13 SNPs, 16.3 > 15)
-    but within the pair budget (30) must align as the worker aligns it; the
-    port threads the pair-level budget to both scoring paths."""
+    but within the pair budget (30) must align as the worker aligns it: the
+    mates' windows span the pair's budget."""
     rng = np.random.default_rng(17)
     bases = "ACGT"
     ref_text = "".join(bases[int(b)] for b in rng.integers(0, 4, size=20000))
@@ -332,5 +333,5 @@ def test_paired_mate_spends_pair_budget(engine_mode):
             [Sequence.from_text(f"b{i}/1", m1), Sequence.from_text(f"b{i}/2", rc_text("".join(m2)))],
             expected_inner_distance=inner, spacing_deviation_per_unit_penalty=50,
         ))
-    got = _agree("pair_budget", {"chr1": ref_text}, queries, summarize_pair)
+    got = _agree("pair_budget", {"chr1": ref_text}, queries, engine_mode, summarize_pair)
     assert all(any(r.get_alignments()) for r in got)

@@ -287,8 +287,6 @@ def test_engine_results_identical_on_mesh(monkeypatch, engine_setup, entries):
         return inner(mesh_arg, *args)
 
     monkeypatch.setattr(banded, "_gathered_on_mesh", spy)
-    # MAPPER_TPU_HOST_SCORING=1 is ignored on a mesh: the mesh scores
-    monkeypatch.setenv("MAPPER_TPU_HOST_SCORING", "1")
     engine = BatchAligner(index, AlignmentParameters.defaults(), mesh=mesh)
     assert engine.device == CPU and engine.mesh == mesh
     got = [summarize(r) for r in engine.process_batch(mixed_queries(ref_text), notify=False)]
