@@ -87,6 +87,13 @@ class ShardedResultWriter:
         self.entries: list[tuple[int, str]] = []
 
     def add_alignments(self, results) -> None:
+        # a writer that gives each result's rows from one pass over the
+        # batch (SamWriter's texts_by_result) is called once a batch
+        texts_by_result = getattr(self.writer, "texts_by_result", None)
+        if texts_by_result is not None:
+            for result, text in zip(results, texts_by_result(results)):
+                self.entries.append((result.query_sequences[0].identifier, text))
+            return
         for result in results:
             before = len(self._chunks)
             self.writer.add_alignments([result])

@@ -106,6 +106,14 @@ def _method(package: Path, module: str, cls: str, name: str) -> str:
     raise LookupError(f"{module}: {cls}.{name} not found")
 
 
+def _from(package: Path, module: str, marker: str) -> str:
+    """The text of a package's module from its one line that starts with
+    `marker` to the end of the file."""
+    text = (package / module).read_text()
+    assert text.count(marker) == 1, f"{module}: {marker!r}"
+    return text[text.index(marker):]
+
+
 def untraced(text: str) -> str:
     """`text` with the tracer (`trace.py`) taken out: the `tracer =
     self.tracer` and `tracer.count(...)` lines dropped, and the body of each
@@ -453,6 +461,22 @@ for barriers; result merging is:""",
             sorted(pileup.insertions.items(), key=lambda item: item[1][3] if len(item[1]) > 3 else -1)
         )
 """,
+    ), (
+        # the SAM writer gives each result's rows from one native pass a
+        # batch, so the shard writer calls it once a batch
+        """    def add_alignments(self, results) -> None:
+        for result in results:
+""",
+        """    def add_alignments(self, results) -> None:
+        # a writer that gives each result's rows from one pass over the
+        # batch (SamWriter's texts_by_result) is called once a batch
+        texts_by_result = getattr(self.writer, "texts_by_result", None)
+        if texts_by_result is not None:
+            for result, text in zip(results, texts_by_result(results)):
+                self.entries.append((result.query_sequences[0].identifier, text))
+            return
+        for result in results:
+""",
     )],
     # one native pass a block length (native/dupscan.cpp) groups the
     # interesting bins by edge text, with counters for the tracer; the
@@ -508,6 +532,39 @@ from mapper_tpu_torch.native import dupscan as native_dupscan
 """ + _method(PORT, "index/duplication.py", "DuplicationDetector", "_process_length_native") + """
 
     def _insert(""",
+    )],
+    # one native pass a batch (native/samrows.cpp) writes the rows: the
+    # port's own methods from `add_alignments` to the end of the file (held
+    # against the JAX package's writer by tests/test_torch_sam_native.py)
+    # take the place of the Python rows
+    "io/sam.py": [(
+        """from mapper_tpu_torch.align.blocks import QueryAlignment, QueryAlignments
+from mapper_tpu_torch.sequence import Sequence
+""",
+        """from mapper_tpu_torch.align.blocks import QueryAlignments
+from mapper_tpu_torch.native import samrows as native_samrows
+from mapper_tpu_torch.sequence import Sequence
+""",
+    ), (
+        '''    """AlignmentListener emitting SAM rows."""
+
+    def __init__(self, sequence_database, stream, contains_paired_end: bool):
+        self.stream = stream
+        self.contains_paired_end = contains_paired_end
+        self._write_header(sequence_database)
+''',
+        '''    """AlignmentListener emitting SAM rows, a batch's rows in one native
+    pass (native/samrows.cpp)."""
+
+    def __init__(self, sequence_database, stream, contains_paired_end: bool):
+        self.stream = stream
+        self.contains_paired_end = contains_paired_end
+        self._formatter = native_samrows.RowFormatter()
+        self._write_header(sequence_database)
+''',
+    ), (
+        renamed(_from(JAX_PACKAGE, "io/sam.py", "    def add_alignments(")),
+        _from(PORT, "io/sam.py", "    def add_alignments("),
     )],
 }
 
